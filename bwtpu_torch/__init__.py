@@ -8,8 +8,9 @@ copied. Module names mirror `bwtpu` so each counterpart is easy to find:
 
   engine.py          device pipelines + host orchestration (Engine)
   cli.py             python -m bwtpu_torch.cli build-index | align
-  kernels/           plain-torch device code; locate.py and verify2.py
-                     also hold the hand-written CUDA kernels' wrappers
+  kernels/           plain-torch device code; locate.py, verify2.py and
+                     search2.py also hold the hand-written CUDA kernels'
+                     wrappers
   csrc/              the CUDA C++ kernels (sm_90a), built at first use
 
 Importing this package imports torch only: no jax, no kernel build.

@@ -3,12 +3,16 @@
 Subcommands:
   build-index  FASTA -> index artifact; the same builder as `cli.py
                build-index` (the artifact is shared by both packages)
-  align        index + uniform-length single-end FASTQ -> SAM, streamed
-               in batches with a checkpointed batch cursor for resume
+  align        index + single-end reads -> SAM, streamed in batches with
+               a checkpointed batch cursor for resume. Routed as cli.py
+               routes them: uniform-length FASTQ -> columnar blocks,
+               mixed-length FASTQ -> one block per read length, FASTA
+               (or reads longer than the index's read_len) -> Read lists
 
 Examples:
   python -m bwtpu_torch.cli build-index ref.fa idx/ --sa-rate 8
   python -m bwtpu_torch.cli align idx/ reads.fq -o out.sam -k 2 --device cuda
+  python -m bwtpu_torch.cli align idx/ reads.fa -o out.sam -k 2 --device cpu
 
 The device defaults to cuda and never falls back: without a card the
 align command fails (pass --device cpu for the plain-torch versions).
@@ -81,10 +85,113 @@ def _align_block_stream(engine, stream, manifest, out_path, k, bs,
     return total, t_start
 
 
+def _align_ragged_block_stream(engine, gen, manifest, out_path, k, start_batch,
+                               cursor_path, mode):
+    """Mixed-length FASTQ: each input-order chunk dispatches one columnar
+    block per distinct read length (padded to the next power of two) and
+    emits in INPUT order (samfast.reorder_sam_records). finish_block runs
+    on one worker thread; SAM and the cursor are written in order."""
+    from bwtpu.results import ContigTable, select_primary_flat
+    from bwtpu.sam import sam_header
+    from bwtpu.samfast import emit_single, reorder_sam_records
+
+    ctable = ContigTable.build(manifest.contigs)
+    out = (sys.stdout.buffer if out_path in (None, "-")
+           else open(out_path, mode + "b"))
+    t_start = time.time()
+    total = 0
+    ex = ThreadPoolExecutor(max_workers=1)
+
+    def process(handles):
+        blobs, idxs, n = [], [], 0
+        for blk, sub, h in handles:
+            flat = engine.finish_block(h)
+            prim = select_primary_flat(flat)
+            blobs.append(emit_single(blk, prim, ctable, truncated=flat.truncated))
+            idxs.append(sub)
+            n += blk.n
+        return reorder_sam_records(blobs, idxs), n
+
+    try:
+        if mode == "w":
+            out.write(sam_header(manifest.contigs).encode())
+        inflight = []
+
+        def drain_one():
+            nonlocal total
+            bi0, t0, fut = inflight.pop(0)
+            blob, nreads = fut.result()
+            out.write(blob)
+            total += nreads
+            print(json.dumps({
+                "event": "batch", "batch": bi0, "reads": nreads,
+                "reads_per_s": round(nreads / (time.time() - t0), 1),
+                "ms": round((time.time() - t0) * 1e3, 1),
+            }), file=sys.stderr)
+            _save_cursor(cursor_path, bi0 + 1)
+
+        for bi, groups in enumerate(gen, start=start_batch):
+            handles = []
+            for blk, sub in groups:
+                pad = 1 << max(0, (blk.n - 1).bit_length())
+                handles.append((blk, sub, engine.dispatch_block(blk, k, pad_to=pad)))
+            inflight.append((bi, time.time(), ex.submit(process, handles)))
+            if len(inflight) > 2:
+                drain_one()
+        while inflight:
+            drain_one()
+    finally:
+        ex.shutdown(wait=True)
+        if out is not sys.stdout.buffer:
+            out.close()
+    return total, t_start
+
+
+def _align_read_lists(engine, reads, manifest, out_path, k, bs, start_batch,
+                      cursor_path, mode):
+    """Read-list path (FASTA, or FASTQ the columnar readers refuse):
+    Engine.dispatch_batch / finish_batch with a few batches in flight,
+    SAM through bwtpu.sam.emit_sam; SAM and the cursor in order."""
+    from bwtpu.sam import emit_sam, sam_header
+
+    out = sys.stdout if out_path in (None, "-") else open(out_path, mode)
+    t_start = time.time()
+    total = 0
+    try:
+        if mode == "w":
+            out.write(sam_header(manifest.contigs))
+        inflight = []
+
+        def drain_one():
+            nonlocal total
+            bi0, t0, chunk, handle = inflight.pop(0)
+            hits = engine.finish_batch(handle)
+            emit_sam(chunk, hits, manifest.contigs, out, header=False)
+            total += len(chunk)
+            _log_batch(bi0, len(chunk), hits, t0)
+            _save_cursor(cursor_path, bi0 + 1)
+
+        for bi in range(0, len(reads), bs):
+            if bi // bs < start_batch:
+                continue
+            chunk = reads[bi : bi + bs]
+            inflight.append((bi // bs, time.time(), chunk,
+                             engine.dispatch_batch(chunk, k)))
+            if len(inflight) > 3:
+                drain_one()
+        while inflight:
+            drain_one()
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return total, t_start
+
+
 def cmd_align(args) -> dict:
     """Align; returns the summary that is also printed to stderr."""
     from bwtpu.index import load_index
-    from bwtpu.readblock import read_fastq_stream
+    from bwtpu.io import read_reads
+    from bwtpu.readblock import read_fastq_stream, read_fastq_stream_ragged
     from bwtpu_torch.engine import Engine
 
     if args.paired:
@@ -98,6 +205,7 @@ def cmd_align(args) -> dict:
     engine = Engine(shards, device=args.device)
     k = args.k if args.k is not None else shards[0].config.k
     bs = args.batch_size
+    read_len = engine.config.read_len
 
     cursor_path = (args.out + ".cursor") if args.out and args.out != "-" else None
     start_batch = 0
@@ -106,16 +214,21 @@ def cmd_align(args) -> dict:
             start_batch = json.load(f)["next_batch"]
         log.info("resuming at batch %d", start_batch)
     mode = "a" if (args.resume and start_batch > 0) else "w"
+    where = (manifest, args.out, k)
 
     res = read_fastq_stream(args.reads, bs, start=start_batch)
-    if res is None or not (0 < res[1] <= engine.config.read_len):
-        raise NotImplementedError(
-            "only uniform-length FASTQ with reads no longer than the index's "
-            "read_len is covered; ragged, FASTA and Read-list input are "
-            "ROADMAP slice 6 of the port")
-    total, t_start = _align_block_stream(
-        engine, res[2], manifest, args.out, k, bs, start_batch, cursor_path, mode,
-    )
+    if res is not None and 0 < res[1] <= read_len:
+        total, t_start = _align_block_stream(
+            engine, res[2], *where, bs, start_batch, cursor_path, mode)
+        return _print_summary(engine, total, t_start)
+    if res is None:
+        resr = read_fastq_stream_ragged(args.reads, bs, start=start_batch)
+        if resr is not None and 0 < resr[1] <= read_len:
+            total, t_start = _align_ragged_block_stream(
+                engine, resr[2], *where, start_batch, cursor_path, mode)
+            return _print_summary(engine, total, t_start)
+    total, t_start = _align_read_lists(
+        engine, read_reads(args.reads), *where, bs, start_batch, cursor_path, mode)
     return _print_summary(engine, total, t_start)
 
 
@@ -132,6 +245,15 @@ def _print_summary(engine, total, t_start) -> dict:
     }
     print(json.dumps(summary), file=sys.stderr)
     return summary
+
+
+def _log_batch(bid, n, hits, t0):
+    dt = time.time() - t0
+    print(json.dumps({
+        "event": "batch", "batch": bid, "reads": n,
+        "hits": sum(len(h) for h in hits),
+        "reads_per_s": round(n / dt, 1), "ms": round(dt * 1e3, 1),
+    }), file=sys.stderr)
 
 
 def _save_cursor(path, next_batch):

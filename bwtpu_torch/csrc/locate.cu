@@ -16,30 +16,12 @@
 // Edge kept from the reference: a lane not found within sa_rate trips
 // reports ssa[0] + 0.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "occ.cuh"
 
 namespace {
 
-__device__ __forceinline__ uint32_t pick4(uint32_t a, uint32_t b, uint32_t c,
-                                          uint32_t d, uint32_t i) {
-  return i == 0 ? a : i == 1 ? b : i == 2 ? c : d;
-}
-
-// count of base c among the first m bases of a block's 8 packed words
-__device__ __forceinline__ int swar_rank(const uint32_t (&w)[8], uint32_t c, int m) {
-  const uint32_t pattern = c * 0x55555555u;
-  int cnt = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    int nb = m - 16 * k;
-    nb = nb < 0 ? 0 : (nb > 16 ? 16 : nb);
-    const uint32_t mask = nb >= 16 ? 0xFFFFFFFFu : ((1u << (2 * nb)) - 1u);
-    const uint32_t y = w[k] ^ pattern;
-    cnt += __popc(~(y | (y >> 1)) & 0x55555555u & mask);
-  }
-  return cnt;
-}
+using bwtpu::pick4;
+using bwtpu::swar_rank;
 
 __global__ void locate_walk_kernel(const int4* __restrict__ lattice,
                                    const int* __restrict__ ssa,

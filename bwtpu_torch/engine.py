@@ -1,21 +1,31 @@
 """Alignment engine on torch tensors (counterpart of bwtpu/engine.py).
 
-This slice covers the CLI's default configuration: one index shard,
-uniform-length reads through the columnar block path, sa_rate >= 2, the
-multi-step Occ lattice with the k-mer start table, and the "hits"
-output with self-healing. Per batch (both strands stacked, rows [0, B)
-forward and [B, 2B) reverse):
+One index shard on one torch device. Two entry points, as in bwtpu:
+
+  dispatch_block / finish_block   columnar ReadBlocks of one read length
+  dispatch_batch / finish_batch   Read lists (align_batch, align_all)
+
+Uniform-length input with the multi-step lattice and d >= 1 runs the
+packed pipelines (both strands stacked, rows [0, B) forward and
+[B, 2B) reverse):
 
   device_prep_packed -> search_early_stop_packed (one per seed slot at
   k > 0) -> ONE compaction of all candidate rows -> locate_walk (CUDA
-  kernel) -> verify_nm (CUDA kernel) -> hit compaction
+  kernel) -> verify_nm (CUDA kernel)
 
-then finish_block assembles FlatHits on the host with bwtpu.results.
-Outputs equal bwtpu's: the same hit sets, truncation marks and SAM
-bytes. Everything else raises NotImplementedError naming the ROADMAP
-slice that brings it. Torch runs eagerly, so the reference's jit program
-cache has no counterpart, and the packed overflow bitmap stays a bool
-row vector.
+with compacted outputs ("hits" or "compact"). Mixed-length Read lists,
+indexes without the multi-step lattice and patterns shorter than every
+k-mer table (d = 0) run the 1-step pipelines with dense outputs:
+
+  encode_batch (host) or device_prep_uniform -> backward_search_ra
+  (search_chain1 kernel, then search_chain2 on the stragglers) ->
+  compaction -> locate_walk [-> verify_nm at k > 0] -> scatter back
+
+The host assembles hits with bwtpu.results. Outputs equal bwtpu's: the
+same hit sets, truncation marks, heals and SAM bytes. Shapes not covered
+yet raise NotImplementedError naming their ROADMAP slice. Torch runs
+eagerly, so the reference's jit program cache has no counterpart, and
+the packed overflow bitmap stays a bool row vector.
 """
 
 from __future__ import annotations
@@ -28,24 +38,36 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from bwtpu import dna
+from bwtpu.config import EngineConfig
+from bwtpu.golden import Hit
 from bwtpu.index import OCCK_STEP_FROM_WIDTH, FMIndex
+from bwtpu.io import Read
 from bwtpu.results import FlatHits, flatten_hits
-from bwtpu_torch.kernels.compact import compact, compact_counts
+from bwtpu_torch.kernels.common import i32
+from bwtpu_torch.kernels.compact import compact, compact_counts, scatter_back
 from bwtpu_torch.kernels.locate import locate_walk
 from bwtpu_torch.kernels.prep import revcomp_packed
 from bwtpu_torch.kernels.search import interval_rows
+from bwtpu_torch.kernels.search2 import backward_search_ra, right_align
 from bwtpu_torch.kernels.searchk import search_early_stop_packed
 from bwtpu_torch.kernels.verify import seed_layout
-from bwtpu_torch.kernels.verify2 import build_text_rows, pack_reads, verify_nm
+from bwtpu_torch.kernels.verify2 import (NM_INVALID, build_text_rows, pack_reads,
+                                         verify_nm)
 
 log = logging.getLogger(__name__)
+
+# "hits" mode packs (sel, nm) into one int32 as sel * 4 + nm: it needs
+# 2 * batch * candidate slots * 4 below this bound, else "compact" mode
+HIT_PAYLOAD_MAX = 2**31
 
 
 class Shard(NamedTuple):
     """One shard's device-resident index."""
 
     lattice: torch.Tensor  # int32[n_blocks+1, 32]
-    latk: torch.Tensor  # int32[n_blocksK+1, W] multi-step records
+    latk: torch.Tensor  # int32[n_blocksK+1, W] multi-step records; (1, 1)
+    #                     dummy = no multi-step lattice (1-step path)
     latk_inv: torch.Tensor  # int32[4] rows with SA[r] < step (-1 pad)
     ssa: torch.Tensor  # int32[n_sampled]
     C: torch.Tensor  # int32[8]
@@ -66,18 +88,15 @@ def upload_index(shards: list[FMIndex], device) -> Shard:
     if s.config.sa_rate == 1:
         raise NotImplementedError(
             "sa_rate == 1 (fused locate+verify rows) is ROADMAP slice 2 of the port")
-    if s.occk_lattice is None:
-        raise NotImplementedError(
-            "index without the multi-step lattice: the 1-step path is "
-            "ROADMAP slice 6 of the port")
+    have_latk = s.occk_lattice is not None
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
 
     return Shard(
         lattice=put(s.search_lattice),
-        latk=put(s.occk_lattice),
-        latk_inv=put(s.occk_invalid),
+        latk=put(s.occk_lattice if have_latk else np.zeros((1, 1), np.int32)),
+        latk_inv=put(s.occk_invalid if have_latk else np.full(4, -1, np.int32)),
         ssa=put(s.ssa),
         C=put(s.C),
         dollar_row=int(s.dollar_row),
@@ -103,12 +122,118 @@ def compact_cap(n_lanes: int, loc_factor, scale: int = 1) -> int:
 
 
 def shard_occ_step(shard: Shard) -> int:
-    """Multi-step size from the lattice record width (index.OCCK_WIDTH)."""
-    return OCCK_STEP_FROM_WIDTH[shard.latk.shape[-1]]
+    """Multi-step size from the lattice record width (index.OCCK_WIDTH);
+    0 = dummy lattice, stay on the 1-step path."""
+    return OCCK_STEP_FROM_WIDTH.get(shard.latk.shape[-1], 0)
 
 
 # ---------------------------------------------------------------------------
-# Device pipelines (plain functions of one shard + one batch)
+# Host-side batch encoding (numpy copy of bwtpu.engine.encode_batch)
+# ---------------------------------------------------------------------------
+
+
+class EncodedBatch(NamedTuple):
+    # search inputs (both strands stacked: rows [0,B) fwd, [B,2B) rev)
+    ra_codes: np.ndarray  # int32[2B, L] right-aligned
+    ra_amb: np.ndarray  # int32[2B, L]
+    lens: np.ndarray  # int32[2B]
+    # verify inputs
+    read_words: np.ndarray  # int32[2B, W]
+    amb_bits: np.ndarray  # int32[2B, W]
+    len_mask: np.ndarray  # int32[2B, W]
+    # seed inputs (built on demand for inexact)
+    seed_ra: np.ndarray | None  # int32[2B*S, cap]
+    seed_amb: np.ndarray | None
+    seed_lens: np.ndarray | None  # int32[2B*S]
+    seed_off: np.ndarray | None  # int32[2B*S]
+    min_len: int
+    min_seed_len: int
+
+
+def encode_batch(
+    config: EngineConfig, reads: list[Read], k: int, pad_to: int | None = None
+) -> tuple[EncodedBatch, int]:
+    B = len(reads)
+    Bp = pad_to or B
+    L = max(config.read_len, max((len(r.seq) for r in reads), default=1))
+    codes = np.zeros((Bp, L), dtype=np.int32)
+    amb = np.zeros((Bp, L), dtype=np.int32)
+    lens = np.zeros(Bp, dtype=np.int32)
+    if reads and all(len(r.seq) == L for r in reads) and Bp == B:
+        c, m = dna.encode_with_mask("".join(r.seq for r in reads))
+        codes[:B] = c.reshape(B, L)
+        amb[:B] = m.reshape(B, L)
+        lens[:B] = L
+    else:
+        for i, r in enumerate(reads):
+            c, m = dna.encode_with_mask(r.seq)
+            codes[i, : len(c)] = c
+            amb[i, : len(c)] = m
+            lens[i] = len(c)
+
+    # both strands, left-aligned
+    rc = np.where(
+        np.arange(L)[None, :] < lens[:, None],
+        3 - np.take_along_axis(
+            codes, np.clip(lens[:, None] - 1 - np.arange(L)[None, :], 0, L - 1),
+            axis=1,
+        ),
+        0,
+    )
+    ra_m = np.take_along_axis(
+        amb, np.clip(lens[:, None] - 1 - np.arange(L)[None, :], 0, L - 1), axis=1
+    )
+    rc_amb = np.where(np.arange(L)[None, :] < lens[:, None], ra_m, 0)
+    codes2 = np.concatenate([codes, rc]).astype(np.int32)
+    amb2 = np.concatenate([amb, rc_amb]).astype(np.int32)
+    lens2 = np.concatenate([lens, lens])
+
+    ra_c, ra_a = right_align(codes2, amb2, lens2)
+    rw, ab, lm = pack_reads(codes2, amb2, lens2)
+    valid_lens = lens[:B][lens[:B] > 0]
+    min_len = int(valid_lens.min()) if len(valid_lens) else 0
+
+    seed_ra = seed_amb = seed_lens = seed_off = None
+    min_seed_len = 0
+    if k > 0:
+        S = k + 1
+        cap = -(-L // S)
+        B2 = 2 * Bp
+        q, r = lens2 // S, lens2 % S
+        s_idx = np.arange(S)[None, :]
+        off = (s_idx * q[:, None] + np.minimum(s_idx, r[:, None])).astype(np.int32)
+        slen = (q[:, None] + (s_idx < r[:, None])).astype(np.int32)
+        # extract + right-align in one gather per element (host numpy)
+        i_idx = np.arange(cap)[None, None, :]
+        src = off[:, :, None] + i_idx - (cap - slen[:, :, None])
+        ok = src >= off[:, :, None]
+        src_safe = np.clip(src, 0, L - 1)
+        sc = np.take_along_axis(
+            np.repeat(codes2[:, None, :], S, axis=1), src_safe, axis=2
+        )
+        sa_ = np.take_along_axis(
+            np.repeat(amb2[:, None, :], S, axis=1), src_safe, axis=2
+        )
+        seed_ra = np.where(ok, sc, 0).reshape(B2 * S, cap).astype(np.int32)
+        seed_amb = np.where(ok, sa_, 0).reshape(B2 * S, cap).astype(np.int32)
+        seed_lens = slen.reshape(B2 * S)
+        seed_off = off.reshape(B2 * S)
+        pos_seeds = seed_lens[seed_lens > 0]
+        min_seed_len = int(pos_seeds.min()) if len(pos_seeds) else 0
+
+    return (
+        EncodedBatch(
+            ra_codes=ra_c, ra_amb=ra_a, lens=lens2,
+            read_words=rw, amb_bits=ab, len_mask=lm,
+            seed_ra=seed_ra, seed_amb=seed_amb, seed_lens=seed_lens,
+            seed_off=seed_off, min_len=min_len, min_seed_len=min_seed_len,
+        ),
+        Bp,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Device-side batch prep for uniform-length packed reads
 # ---------------------------------------------------------------------------
 
 
@@ -116,6 +241,59 @@ def _len_mask_words(L: int) -> np.ndarray:
     """int32[W] length mask of one length-L read (pack_reads layout)."""
     return pack_reads(np.zeros((1, L), np.int32), np.zeros((1, L), np.int32),
                       np.array([L]))[2][0]
+
+
+def _unpack_words(words, L: int, step: int):
+    """(B, W) packed words -> (B, L) fields of `step` bits at even slots
+    (the shift may be arithmetic: only the masked low bits are kept)."""
+    rep = words.repeat_interleave(16, dim=1)[:, :L]
+    shifts = torch.from_numpy((2 * (np.arange(L) % 16)).astype(np.int32))
+    return (rep >> shifts.to(words.device)) & ((1 << step) - 1)
+
+
+def _pack_words(vals, W: int):
+    """(B, L) 2-bit values -> (B, W) packed int32 words."""
+    B, L = vals.shape
+    v = torch.cat([vals.to(torch.int64),
+                   vals.new_zeros((B, W * 16 - L), dtype=torch.int64)], dim=1)
+    shifts = 2 * torch.arange(16, dtype=torch.int64, device=vals.device)
+    return i32((v.reshape(B, W, 16) << shifts).sum(2))
+
+
+def device_prep_uniform(read_words, amb_bits, L: int, k: int):
+    """Both-strand code planes of uniform-length packed reads, laid out as
+    encode_batch lays them out: (ra_codes2, ra_amb2, lens2, read_words2,
+    amb_bits2, len_mask2, seeds), seeds = (seed_ra, seed_amb, seed_lens,
+    seed_off) for k > 0, else None. The 1-step fallback runs on these."""
+    B, W = read_words.shape
+    dev = read_words.device
+    codes = _unpack_words(read_words, L, 2)
+    amb = _unpack_words(amb_bits, L, 1)
+    rc = 3 - codes.flip(1)
+    rca = amb.flip(1)
+    codes2 = torch.cat([codes, rc])
+    amb2 = torch.cat([amb, rca])
+    lens2 = torch.full((2 * B,), L, dtype=torch.int32, device=dev)
+    rw2 = torch.cat([read_words, _pack_words(rc, W)])
+    ab2 = torch.cat([amb_bits, _pack_words(rca, W)])
+    lm2 = torch.from_numpy(_len_mask_words(L)).to(dev).unsqueeze(0).expand(2 * B, W)
+
+    seeds = None
+    if k > 0:
+        nS = k + 1
+        cap = -(-L // nS)
+        layout = seed_layout(L, nS)
+        pad = torch.zeros((2 * B, cap), dtype=torch.int32, device=dev)
+
+        def right_aligned(plane):
+            parts = [torch.cat([pad[:, : cap - slen], plane[:, off : off + slen]], 1)
+                     for off, slen in layout]
+            return torch.stack(parts, dim=1).reshape(2 * B * nS, cap)
+
+        offs, slens = (torch.tensor(x, dtype=torch.int32, device=dev).repeat(2 * B)
+                       for x in zip(*layout))
+        seeds = (right_aligned(codes2), right_aligned(amb2), slens, offs)
+    return codes2, amb2, lens2, rw2, ab2, lm2, seeds
 
 
 def device_prep_packed(read_words, amb_bits, L: int):
@@ -129,17 +307,83 @@ def device_prep_packed(read_words, amb_bits, L: int):
     return rw2, ab2, lens2, lm.unsqueeze(0).expand(2 * B, W)
 
 
+# ---------------------------------------------------------------------------
+# Device pipelines (plain functions of one shard + one batch)
+# ---------------------------------------------------------------------------
+
+
+def _locate_compacted(shard: Shard, rows, counts, *, sa_rate, cap):
+    """Compact the rows of per-lane counts (rows[l, :counts[l]]), locate
+    them, scatter positions back (-1 fill). Returns (pos, loc_over,
+    dropped bool[lanes]): lanes whose rows did not all fit the cap."""
+    sel, count, loc_over, dropped = compact_counts(counts, rows.shape[-1], cap)
+    sel_valid = torch.arange(cap, dtype=torch.int32, device=rows.device) < count
+    # sel indexes a live lane's own slots, so the gather is in range
+    pos_c = locate_walk(shard.lattice, shard.ssa, shard.C, shard.dollar_row,
+                        rows.reshape(-1).index_select(0, sel), sel_valid, sa_rate)
+    pos = scatter_back(pos_c, sel, count, rows.numel(), fill=-1)
+    return pos.reshape(rows.shape), loc_over, dropped
+
+
+def _exact_finish(shard: Shard, sp, ep, fix_over, *, max_hits, sa_rate,
+                  loc_factor, cap_scale=1):
+    """Interval expand -> compacted locate. Returns (pos int32[B2, H],
+    valid, overflow int32[B2], loc_over): compaction drops and fixup
+    losses join the interval overflow, one incompleteness count per row."""
+    rows, valid, overflow = interval_rows(sp, ep, max_hits)
+    pos, loc_over, dropped = _locate_compacted(
+        shard, rows, ep - sp, sa_rate=sa_rate,
+        cap=compact_cap(sp.shape[0], loc_factor, cap_scale))
+    overflow = overflow + dropped.to(torch.int32) + fix_over
+    return pos, valid & (pos >= 0), overflow, loc_over
+
+
+def exact_pipeline(shard: Shard, ra_codes, ra_amb, lens, *, d: int, max_hits: int,
+                   sa_rate: int, loc_factor=2, cap_scale: int = 1):
+    """1-step exact path: k-mer start -> backward_search_ra -> locate.
+    Returns (pos int32[B2, H], valid bool[B2, H], overflow int32[B2],
+    loc_over)."""
+    sp, ep, fix_over = backward_search_ra(
+        shard.lattice, shard.C, shard.dollar_row, shard.n,
+        shard.kmer_tables[d] if d > 0 else None, ra_codes, ra_amb, lens, d,
+        cap_scale=cap_scale)
+    return _exact_finish(shard, sp, ep, fix_over, max_hits=max_hits,
+                         sa_rate=sa_rate, loc_factor=loc_factor, cap_scale=cap_scale)
+
+
+def inexact_pipeline(shard: Shard, seed_ra, seed_amb, seed_lens, seed_off,
+                     read_words, amb_bits, len_mask, lens, *, k: int, d: int,
+                     max_loc: int, sa_rate: int, loc_factor=4, cap_scale: int = 1):
+    """1-step pigeonhole seed-and-extend over right-aligned seed lanes
+    (lane = read_row * (k+1) + slot). Returns the dense (cand int32[B2,
+    Ct], nm, valid, overflow int32[B2], comp_over)."""
+    sp, ep, fix_over = backward_search_ra(
+        shard.lattice, shard.C, shard.dollar_row, shard.n,
+        shard.kmer_tables[d] if d > 0 else None, seed_ra, seed_amb, seed_lens, d,
+        cap_scale=cap_scale)
+    empty = seed_lens == 0
+    sp = torch.where(empty, 0, sp)
+    ep = torch.where(empty, 0, ep)
+    return _inexact_from_intervals(
+        shard, sp, ep, seed_off, read_words, amb_bits, len_mask, lens, k=k,
+        max_loc=max_loc, sa_rate=sa_rate, loc_factor=loc_factor,
+        fix_over=fix_over, cap_scale=cap_scale, compact_output=False)
+
+
 def _inexact_from_intervals(shard: Shard, sp, ep, seed_off, read_words,
                             amb_bits, len_mask, lens, *, k, max_loc, sa_rate,
-                            loc_factor, fix_over, cap_scale=1):
+                            loc_factor, fix_over, cap_scale=1, compact_output=True):
     """Seed-lane intervals -> ONE compaction -> locate -> packed verify.
 
     Lane l = read_row * (k+1) + seed_slot; a candidate's read start is
     locate(row) - seed_off[l]. Returns the compacted candidate list
     (cand_c, nm_c, sel, count) plus the per-row incompleteness count
     (interval overflow, compaction drop or finisher loss) and the
-    compaction overflow. Duplicates across seed slots are left for the
-    host assembler (bwtpu.results dedupes on (read, pos, strand)).
+    compaction overflow; with compact_output=False the candidates are
+    scattered back to dense (B2, (k+1) * max_loc) planes instead (fill -1
+    / NM_INVALID): (cand, nm, nm <= k, overflow, comp_over). Duplicates
+    across seed slots are left for the host assembler (bwtpu.results
+    dedupes on (read, pos, strand)).
     """
     B2 = read_words.shape[0]
     nS = k + 1
@@ -161,14 +405,32 @@ def _inexact_from_intervals(shard: Shard, sp, ep, seed_off, read_words,
         read_words.index_select(0, b_idx), amb_bits.index_select(0, b_idx),
         len_mask.index_select(0, b_idx), lens.index_select(0, b_idx),
     )
-    return cand_c, nm_c, sel, count, overflow, comp_over
+    if compact_output:
+        return cand_c, nm_c, sel, count, overflow, comp_over
+    total = B2 * nS * max_loc
+    cand = scatter_back(cand_c, sel, count, total, fill=-1).reshape(B2, -1)
+    nm = scatter_back(nm_c, sel, count, total, fill=NM_INVALID).reshape(B2, -1)
+    return cand, nm, nm <= k, overflow, comp_over
+
+
+def _has_multistep(shard: Shard, d: int) -> bool:
+    """The packed (multi-step, compacted) pipelines need the multi-step
+    lattice and a k-mer start table (d >= 1); else the 1-step ones run."""
+    return bool(shard_occ_step(shard) and d >= 1)
 
 
 def exact_pipeline_packed(shard: Shard, read_words, amb_bits, *, L, d, max_hits,
                           sa_rate, loc_factor=2, min_trips=0, cap_scale=1,
                           wide_steps=0):
     """Exact search as the k = 0 case of the candidate path: early-stop
-    search -> locate -> full-length verify (hit iff nm == 0)."""
+    search -> locate -> full-length verify (hit iff nm == 0); compacted
+    outputs. Without the multi-step lattice or at d = 0: the 1-step
+    exact_pipeline on device-derived code planes, dense outputs."""
+    if not _has_multistep(shard, d):
+        ra2, raa2, lens2, *_ = device_prep_uniform(read_words, amb_bits, L, 0)
+        return exact_pipeline(shard, ra2, raa2, lens2, d=d, max_hits=max_hits,
+                              sa_rate=sa_rate, loc_factor=loc_factor,
+                              cap_scale=cap_scale)
     rw2, ab2, lens2, lm2 = device_prep_packed(read_words, amb_bits, L)
     sp, ep, rem, fix_over = search_early_stop_packed(
         shard.lattice, shard.latk, shard.latk_inv, shard.C, shard.dollar_row,
@@ -188,7 +450,14 @@ def inexact_pipeline_packed(shard: Shard, read_words, amb_bits, *, L, k, d,
                             cap_scale=1, wide_steps=0):
     """Pigeonhole seed-and-extend: k+1 static seed slots searched as
     (off, slen) subfields of the packed rows, all candidates verified at
-    full length."""
+    full length; compacted outputs. Without the multi-step lattice or at
+    d = 0: the 1-step inexact_pipeline, dense outputs."""
+    if not _has_multistep(shard, d):
+        _, _, lens2, rw2, ab2, lm2, seeds = device_prep_uniform(
+            read_words, amb_bits, L, k)
+        return inexact_pipeline(shard, *seeds, rw2, ab2, lm2, lens2, k=k, d=d,
+                                max_loc=max_loc, sa_rate=sa_rate,
+                                loc_factor=loc_factor, cap_scale=cap_scale)
     rw2, ab2, lens2, lm2 = device_prep_packed(read_words, amb_bits, L)
     B2 = rw2.shape[0]
     nS = k + 1
@@ -230,7 +499,7 @@ def hits_output(out, *, k: int, Ct: int, hit_cap: int):
 
 
 # ---------------------------------------------------------------------------
-# Engine (host orchestration)
+# Host assembly (numpy copies of bwtpu.engine's)
 # ---------------------------------------------------------------------------
 
 
@@ -244,6 +513,26 @@ class BatchStats:
     truncated_reads: int = 0  # reads still capacity-cut after max_heals
     device_s: float = 0.0
     host_s: float = 0.0
+
+
+def _assemble_flat(reads, B, s_idx, row_idx, p, m, text_lens, offsets):
+    """Flat (shard, read-strand row, local pos, nm) vectors -> per-read
+    deduped sorted Hit lists (bwtpu.results)."""
+    from bwtpu.results import hit_lists
+
+    read_lens = np.array([len(r.seq) for r in reads], dtype=np.int64)
+    flat = flatten_hits(
+        len(reads), read_lens, B, s_idx, row_idx, p, m, text_lens, offsets
+    )
+    return hit_lists(flat)
+
+
+def dense_to_columns(pos, nm, valid):
+    """(S, 2B, H) dense device outputs -> flat (s_idx, row_idx, p, m)."""
+    s_idx, row_idx, h_idx = np.nonzero(valid)
+    p = pos[s_idx, row_idx, h_idx]
+    m = nm[s_idx, row_idx, h_idx] if nm is not None else np.zeros(len(p), int)
+    return s_idx, row_idx, p, m
 
 
 def compact_to_columns(shard_comp, k, Ct):
@@ -263,6 +552,27 @@ def compact_to_columns(shard_comp, k, Ct):
         np.concatenate(s_l), np.concatenate(row_l),
         np.concatenate(p_l), np.concatenate(m_l),
     )
+
+
+def assemble_hits(reads, B, pos, nm, valid, text_lens, offsets):
+    """(S, 2B, H) dense device outputs -> per-read Hit lists."""
+    s_idx, row_idx, p, m = dense_to_columns(pos, nm, valid)
+    return _assemble_flat(reads, B, s_idx, row_idx, p, m, text_lens, offsets)
+
+
+def assemble_hits_compact(reads, B, shard_comp, k, Ct, text_lens, offsets):
+    """Compacted device outputs -> per-read Hit lists."""
+    s_idx, row_idx, p, m = compact_to_columns(shard_comp, k, Ct)
+    return _assemble_flat(reads, B, s_idx, row_idx, p, m, text_lens, offsets)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Engine (host orchestration)
+# ---------------------------------------------------------------------------
 
 
 class Engine:
@@ -306,12 +616,182 @@ class Engine:
         hf = cfg.hit_factor if level == 0 else lf
         return mh, mc, lf, hf
 
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _run_packed(self, rw, ab, L: int, k: int, d: int, level: int):
+        """Packed forward reads -> the packed pipeline's outputs: compacted
+        when _has_multistep(shard, d), else the 1-step fallback's dense
+        outputs."""
+        mh, mc, lf, _ = self._caps(k, level)
+        opts = dict(sa_rate=self.config.sa_rate, loc_factor=lf,
+                    min_trips=self.config.min_trips, cap_scale=1 << level,
+                    wide_steps=self._wide_steps(d))
+        rw, ab = self._put(rw), self._put(ab)
+        if k == 0:
+            return exact_pipeline_packed(self.shard, rw, ab, L=L, d=d,
+                                         max_hits=mh, **opts)
+        return inexact_pipeline_packed(self.shard, rw, ab, L=L, k=k, d=d,
+                                       max_loc=mc, **opts)
+
+    # ---- Read lists (align_batch, align_all) ----
+
+    def dispatch_batch(self, reads: list[Read], k: int, _level: int = 0):
+        """Encode + launch device work for one batch; returns a handle for
+        finish_batch. Uniform-length batches no longer than read_len run
+        the packed pipelines on 2-bit packed forward reads; mixed lengths
+        go through encode_batch and the 1-step pipelines (dense).
+
+        _level: self-healing escalation level — all capacities run at
+        2**_level x their configured values."""
+        L = len(reads[0].seq) if reads else 0
+        if reads and 0 < L <= self.config.read_len and all(
+            len(r.seq) == L for r in reads
+        ):
+            B = len(reads)
+            c, m = dna.encode_with_mask("".join(r.seq for r in reads))
+            rw, ab, _ = pack_reads(c.reshape(B, L).astype(np.int32),
+                                   m.reshape(B, L).astype(np.int32),
+                                   np.full(B, L, np.int32))
+            d = pick_kmer_depth(self.kmer_depths, L if k == 0 else L // (k + 1))
+            out = self._run_packed(rw, ab, L, k, d, _level)
+            mode = "compact" if _has_multistep(self.shard, d) else "dense"
+            return (reads, B, k, out, time.perf_counter(), mode, _level)
+
+        enc, B = encode_batch(self.config, reads, k)
+        mh, mc, lf, _ = self._caps(k, _level)
+        opts = dict(sa_rate=self.config.sa_rate, loc_factor=lf,
+                    cap_scale=1 << _level)
+        if k == 0:
+            d = pick_kmer_depth(self.kmer_depths, enc.min_len)
+            out = exact_pipeline(
+                self.shard, *map(self._put, (enc.ra_codes, enc.ra_amb, enc.lens)),
+                d=d, max_hits=mh, **opts)
+        else:
+            d = pick_kmer_depth(self.kmer_depths, enc.min_seed_len)
+            out = inexact_pipeline(
+                self.shard, *map(self._put, (
+                    enc.seed_ra, enc.seed_amb, enc.seed_lens, enc.seed_off,
+                    enc.read_words, enc.amb_bits, enc.len_mask, enc.lens)),
+                k=k, d=d, max_loc=mc, **opts)
+        return (reads, B, k, out, time.perf_counter(), "dense", _level)
+
+    def _maybe_heal_batch(self, reads, k, overflow, compact_over, level):
+        """Self-healing re-dispatch: when any row overflowed a capacity
+        (interval / compaction / fixup) and heal levels remain, re-run the
+        whole batch with every cap doubled. Returns the healed hits or
+        None."""
+        n_over = int((overflow.sum(axis=0) > 0).sum())
+        cfg = self.config
+        if (n_over or compact_over) and cfg.heal_overflow and (
+            level < cfg.max_heals
+        ):
+            self.stats.heals += 1
+            log.info(
+                "align_batch: %d overflowed rows / %d compaction drops — "
+                "healing with 2^%d x caps", n_over, compact_over, level + 1,
+            )
+            return self.finish_batch(
+                self.dispatch_batch(reads, k, _level=level + 1)
+            )
+        return None
+
+    def finish_batch(self, handle) -> list[list[Hit]]:
+        """Materialize a dispatch_batch handle -> per-read Hit lists."""
+        reads, B, k, out, t_disp, mode, level = handle
+        t1 = time.perf_counter()
+        mh, mc, lf, hf = self._caps(k, level)
+        Ct = (k + 1) * mc if k else mh
+        if mode == "compact":
+            cand_c, nm_c, sel, count, overflow, co = out
+            cnt = int(count)
+            shard_comp = [(_np(cand_c[:cnt]), _np(nm_c[:cnt]), _np(sel[:cnt]), cnt)]
+        elif k == 0:
+            pos, valid, overflow, co = out
+            nm = None
+        else:
+            pos, nm, valid, overflow, co = out
+        overflow = _np(overflow)[None]  # (shards, 2B)
+        compact_over = int(co)
+        self.stats.device_s += time.perf_counter() - t_disp
+        healed = self._maybe_heal_batch(reads, k, overflow, compact_over, level)
+        if healed is not None:
+            return healed
+        if mode == "compact":
+            if compact_over:
+                log.warning(
+                    "align_batch: compaction capacity overflowed by %d rows "
+                    "after %d heals; results may be incomplete — raise "
+                    "loc_factor or max_heals", compact_over, level,
+                )
+            sh = self.shards[0]
+            hits = assemble_hits_compact(reads, B, shard_comp, k, Ct,
+                                         [sh.text_len], [sh.shard_offset])
+            return self._finish_stats(reads, hits, overflow, compact_over, t1)
+        return self._assemble(reads, B, _np(pos)[None],
+                              None if nm is None else _np(nm)[None],
+                              _np(valid)[None], overflow, compact_over, t1)
+
+    def align_batch(self, reads: list[Read], k: int | None = None) -> list[list[Hit]]:
+        if not reads:
+            return []
+        k = self.config.k if k is None else k
+        return self.finish_batch(self.dispatch_batch(reads, k))
+
+    def _assemble(self, reads, B, pos, nm, valid, overflow, compact_over, t1):
+        if compact_over:
+            log.warning(
+                "align_batch: compaction capacity overflowed by %d rows; "
+                "results may be incomplete — raise loc_factor/max_cand",
+                compact_over,
+            )
+        sh = self.shards[0]
+        out = assemble_hits(reads, B, pos, nm, valid, [sh.text_len],
+                            [sh.shard_offset])
+        return self._finish_stats(reads, out, overflow, compact_over, t1)
+
+    def _finish_stats(self, reads, out, overflow, compact_over, t1):
+        n_over = int((overflow.sum(axis=0) > 0).sum())
+        if n_over:
+            log.warning(
+                "align_batch: %d read-strand rows overflowed interval "
+                "capacity (max_hits=%d, max_cand=%d); raise the caps",
+                n_over, self.config.max_hits, self.config.max_cand,
+            )
+        self.stats.reads += len(reads)
+        self.stats.hits += sum(len(h) for h in out)
+        self.stats.overflow_reads += n_over
+        self.stats.compact_overflows += compact_over
+        self.stats.host_s += time.perf_counter() - t1
+        return out
+
+    def align_all(self, reads: list[Read], k: int | None = None,
+                  batch_size: int | None = None,
+                  pipeline_depth: int = 3) -> list[list[Hit]]:
+        """Streamed alignment with `pipeline_depth` batches in flight."""
+        k = self.config.k if k is None else k
+        bs = batch_size or self.config.batch_size
+        out: list[list[Hit]] = []
+        inflight: list = []
+        for i in range(0, len(reads), bs):
+            inflight.append(self.dispatch_batch(reads[i : i + bs], k))
+            if len(inflight) > pipeline_depth:
+                out.extend(self.finish_batch(inflight.pop(0)))
+        while inflight:
+            out.extend(self.finish_batch(inflight.pop(0)))
+        return out
+
+    # ---- columnar ReadBlocks (the CLI's FASTQ paths) ----
+
     def dispatch_block(self, block, k: int | None = None,
                        pad_to: int | None = None, _level: int = 0):
         """Run a uniform-length columnar ReadBlock (bwtpu.readblock)
         through the packed pipelines. pad_to keeps batch shapes fixed
         across a stream; pad rows are all-ambiguous and die at the start
-        table. Returns a handle for finish_block."""
+        table. Output modes, as in bwtpu: "hits" (one compacted hit
+        list), "compact" when the hit payload sel*4 + nm would overflow
+        int32, "dense" on the 1-step fallback. Returns a handle for
+        finish_block."""
         from bwtpu.readblock import pack_block
 
         k = self.config.k if k is None else k
@@ -325,30 +805,16 @@ class Engine:
             rw = np.concatenate([rw, np.zeros((Bp - block.n, W), np.int32)])
             ab = np.concatenate([ab, np.full((Bp - block.n, W), 0x55555555, np.int32)])
         d = pick_kmer_depth(self.kmer_depths, L if k == 0 else L // (k + 1))
-        if d < 1:
-            raise NotImplementedError(
-                f"patterns shorter than every k-mer table (d = 0): the 1-step "
-                "path is ROADMAP slice 6 of the port")
+        compact_out = _has_multistep(self.shard, d)
         mh, mc, lf, hf = self._caps(k, _level)
         Ct = (k + 1) * mc if k else mh
-        if 2 * Bp * Ct * 4 >= 2**31:
-            raise NotImplementedError(
-                f"batch {Bp} x {Ct} candidate slots overflows the int32 hit "
-                "payload: lower --batch-size")
-        cfg = self.config
-        rw = torch.from_numpy(np.ascontiguousarray(rw)).to(self.device)
-        ab = torch.from_numpy(np.ascontiguousarray(ab)).to(self.device)
-        opts = dict(sa_rate=cfg.sa_rate, loc_factor=lf, min_trips=cfg.min_trips,
-                    cap_scale=1 << _level, wide_steps=self._wide_steps(d))
-        if k == 0:
-            out = exact_pipeline_packed(self.shard, rw, ab, L=L, d=d,
-                                        max_hits=mh, **opts)
-        else:
-            out = inexact_pipeline_packed(self.shard, rw, ab, L=L, k=k, d=d,
-                                          max_loc=mc, **opts)
-        hit_cap = min(out[2].shape[0], compact_cap(2 * Bp, hf, 1 << _level))
-        out = hits_output(out, k=k, Ct=Ct, hit_cap=hit_cap)
-        return ("block", block, Bp, k, out, time.perf_counter(), "hits", _level)
+        hits = compact_out and 2 * Bp * Ct * 4 < HIT_PAYLOAD_MAX
+        out = self._run_packed(rw, ab, L, k, d, _level)
+        if hits:
+            hit_cap = min(out[2].shape[0], compact_cap(2 * Bp, hf, 1 << _level))
+            out = hits_output(out, k=k, Ct=Ct, hit_cap=hit_cap)
+        mode = "hits" if hits else ("compact" if compact_out else "dense")
+        return ("block", block, Bp, k, out, time.perf_counter(), mode, _level)
 
     def finish_block(self, handle) -> FlatHits:
         """Materialize a dispatch_block handle -> bwtpu.results.FlatHits.
@@ -357,21 +823,34 @@ class Engine:
         (bounded by config.max_heals); reads still overflowed at the last
         level are flagged in FlatHits.truncated (SAM tag xo:i:1)."""
         tag, block, Bp, k, out, t_disp, mode, level = handle
-        assert tag == "block" and mode == "hits"
+        assert tag == "block"
         mh, mc, lf, hf = self._caps(k, level)
         Ct = (k + 1) * mc if k else mh
         cfg = self.config
         can_heal = cfg.heal_overflow and level < cfg.max_heals
-        hc, hm, cnt2, n_ov, co, hover, ov_rows = out
-        cnt, n_over, compact_over, hit_over = torch.stack(
-            [x.to(torch.int64) for x in (cnt2, n_ov, co, hover)]).tolist()
-        hc = hc[:cnt].cpu().numpy()
-        hm = hm[:cnt].cpu().numpy()
+        hit_over = 0
+        if mode == "hits":
+            hc, hm, cnt2, n_ov, co, hover, ov_rows = out
+            cnt, n_over, compact_over, hit_over = torch.stack(
+                [x.to(torch.int64) for x in (cnt2, n_ov, co, hover)]).tolist()
+            hm = _np(hm[:cnt])
+            shard_comp = [(_np(hc[:cnt]), hm % 4, hm // 4, cnt)]
+        elif mode == "compact":
+            cand_c, nm_c, sel, count, overflow, co = out
+            ov_rows = overflow > 0
+            cnt, n_over, compact_over = torch.stack(
+                [x.to(torch.int64) for x in (count, ov_rows.sum(), co)]).tolist()
+            shard_comp = [(_np(cand_c[:cnt]), _np(nm_c[:cnt]), _np(sel[:cnt]), cnt)]
+        else:  # dense: (pos, valid, overflow, loc_over) or (cand, nm, valid, ...)
+            pos, nm, valid, overflow, co = out if k else (out[0], None, *out[1:])
+            ov_rows = overflow > 0
+            n_over, compact_over = torch.stack(
+                [ov_rows.sum(), co.to(torch.int64)]).tolist()
         self.stats.device_s += time.perf_counter() - t_disp
         if (n_over or compact_over or hit_over) and can_heal:
             return self._heal_block(block, k, Bp, level, n_over,
                                     compact_over + hit_over)
-        trunc_rows = ov_rows.cpu().numpy() if n_over else None
+        trunc_rows = _np(ov_rows) if n_over else None
         if hit_over:
             log.warning(
                 "align block: hit buffer overflowed by %d hits after %d heals "
@@ -379,7 +858,12 @@ class Engine:
             )
             self.stats.compact_overflows += hit_over
         t1 = time.perf_counter()
-        s_idx, row_idx, p, m = compact_to_columns([(hc, hm % 4, hm // 4, cnt)], k, Ct)
+        if mode == "dense":
+            s_idx, row_idx, p, m = dense_to_columns(
+                _np(pos)[None], None if nm is None else _np(nm)[None],
+                _np(valid)[None])
+        else:
+            s_idx, row_idx, p, m = compact_to_columns(shard_comp, k, Ct)
         if compact_over:
             log.warning(
                 "align block: compaction capacity overflowed by %d rows after "

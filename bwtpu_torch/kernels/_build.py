@@ -3,13 +3,15 @@
 Each kernel source has a plain C entry point (pointers, ints and the
 stream; it returns cudaGetLastError()), so the build never includes
 PyTorch's headers: `nvcc -shared` of one file takes seconds. The shared
-library is cached in bwtpu_torch/_build/ under a hash of the source and
-the flags, and built at first use — never at import.
+library is cached in bwtpu_torch/_build/ under a hash of the source, the
+shared csrc/*.cuh headers and the flags, and built at first use — never
+at import. `build_all` starts one nvcc per source at once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -43,34 +45,62 @@ def _nvcc() -> str:
                        "kernels of bwtpu_torch need the CUDA toolkit")
 
 
+def _paths(name: str) -> tuple[str, str]:
+    """(source, cached library path) of csrc/<name>.cu; the cache key
+    hashes the source, every csrc/*.cuh header and the flags."""
+    src = os.path.join(CSRC, name + ".cu")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+
+
+def _load(name: str, so: str, info: dict) -> ctypes.CDLL:
+    lib = ctypes.CDLL(so)
+    lib.bwtpu_cuda_error_name.restype = ctypes.c_char_p
+    lib.bwtpu_cuda_error_name.argtypes = [ctypes.c_int]
+    build_info[name] = info
+    _libs[name] = lib
+    return lib
+
+
+def build_all(names) -> None:
+    """Build and load the named sources, one nvcc process for each
+    source that is not cached, all started together. Raises on a failed
+    build; there is no fallback."""
+    with _lock:
+        todo = []
+        for name in names:
+            if name in _libs:
+                continue
+            src, so = _paths(name)
+            if os.path.exists(so):
+                _load(name, so, {"seconds": 0.0, "ptxas": ""})
+                continue
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.tmp{os.getpid()}"
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+            todo.append((name, src, so, tmp, proc, time.perf_counter()))
+        failed = []
+        for name, src, so, tmp, proc, t0 in todo:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {src}:\n{err}")
+                continue
+            os.replace(tmp, so)
+            _load(name, so, {"seconds": time.perf_counter() - t0, "ptxas": err})
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
 def library(name: str) -> ctypes.CDLL:
     """Load csrc/<name>.cu as a shared library, building it if needed.
     Raises on a failed build; there is no fallback."""
-    with _lock:
-        if name in _libs:
-            return _libs[name]
-        src = os.path.join(CSRC, name + ".cu")
-        with open(src, "rb") as f:
-            text = f.read()
-        tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
-        info = {"seconds": 0.0, "ptxas": ""}
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.tmp{os.getpid()}"
-            t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-            os.replace(tmp, so)
-            info = {"seconds": time.perf_counter() - t0, "ptxas": proc.stderr}
-        lib = ctypes.CDLL(so)
-        lib.bwtpu_cuda_error_name.restype = ctypes.c_char_p
-        lib.bwtpu_cuda_error_name.argtypes = [ctypes.c_int]
-        build_info[name] = info
-        _libs[name] = lib
-        return lib
+    build_all([name])
+    return _libs[name]
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -5,17 +5,28 @@
 
 Phases, in order; any failure raises and the exit code is not 0:
   1. the card: nvidia-smi name + power limit, torch's device name;
-  2. build the CUDA kernels (nvcc, sm_90a) from bwtpu_torch/csrc;
+  2. build the four CUDA kernels (nvcc, sm_90a) from bwtpu_torch/csrc,
+     one nvcc per source, all started together;
   3. each kernel against its plain-torch version on the card at
      main-path shapes (exact equality), with CUDA-event times of both;
   4. phiX174 through the port's CLI on the card, byte-equal to
      data/phiX174_golden.sam;
-  5. the main path at E. coli scale: `build-index` with the CLI
+  5. slice 1's path at E. coli scale: `build-index` with the CLI
      defaults, 131,072 simulated 100 bp reads (<= 2 mismatches), port
      CLI `align -k 0` and `-k 2` at batch 16,384; checks truth recovery,
      a brute-force Hamming scan of 256 sampled reads, SAM determinism,
-     zero truncated reads and that both kernels ran on that path;
-  6. the result line.
+     zero truncated reads and that locate_walk, verify_nm and (in the
+     straggler finisher) search_chain2 ran on that path;
+  6. the Read-list path on the same index: 131,072 reads of 50-100 bp
+     as FASTA through the port CLI at k = 0 and k = 2, batch 16,384
+     (Engine.dispatch_batch -> backward_search_ra); the same checks, and
+     all four kernels launched;
+  7. the result line.
+
+The genome is random at E. coli size (4,641,652 bp) with one dispersed
+repeat family (300 copies of a 12 bp motif), so that some 11-mer start
+intervals span more than two lattice blocks and the 1-step search's
+straggler fixup runs, as a real genome's repeat families make it do.
 
 The JAX package is never imported: correctness comes from independent
 oracles (the golden SAM, truth, brute force, the plain versions).
@@ -37,6 +48,7 @@ N_READS = 131072
 BATCH = 16384
 N_SAMPLED = 256
 LANES = 65536  # compacted candidate lanes of one k = 2 batch (cap = 2 x 2B)
+REPEAT, N_REPEATS = "GATCCGTTAGCA", 300
 
 
 def require(ok: bool, what: str) -> None:
@@ -49,10 +61,10 @@ def say(*a) -> None:
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
-    """Median of `reps` CUDA-event timings of fn() after 3 warm-up calls."""
+    """Median of `reps` CUDA-event timings of fn() after warm-up calls."""
     import torch
 
-    for _ in range(3):
+    for _ in range(min(3, reps)):
         fn()
     times = []
     for _ in range(reps):
@@ -85,10 +97,11 @@ def phase_card():
 def phase_build():
     from bwtpu_torch.kernels import _build
 
-    say("[2] kernel build (nvcc -gencode arch=compute_90a,code=sm_90a)")
+    say("[2] kernel build (nvcc -gencode arch=compute_90a,code=sm_90a), in parallel")
     t0 = time.perf_counter()
-    for name in ("locate", "verify"):
-        _build.library(name)
+    names = ("locate", "verify", "search1", "search2")
+    _build.build_all(names)
+    for name in names:
         info = _build.build_info[name]
         say(f"  {name}.cu: built in {info['seconds']:.2f} s")
         for line in info["ptxas"].splitlines():
@@ -97,8 +110,9 @@ def phase_build():
     say(f"  build total {time.perf_counter() - t0:.2f} s")
 
 
-def phase_kernels(genome: str):
-    """Kernel vs plain at main-path shapes; returns the kernel records."""
+def phase_kernels(genome: str, reads):
+    """Kernel vs plain at main-path shapes; returns the kernel records.
+    `reads` are the Read-list phase's mixed-length reads."""
     import numpy as np
     import torch
 
@@ -143,6 +157,7 @@ def phase_kernels(genome: str):
             f"walk: {at_ssa0}")
         if sa_rate == 8:  # the CLI default: the main path's shapes
             records["locate_walk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+            idx8 = idx
             text_rows = put(build_text_rows(idx.text_packed, 100))
             text_len = idx.text_len
 
@@ -167,6 +182,70 @@ def phase_kernels(genome: str):
     say(f"  verify_nm    L {L}, W {W}, {LANES} candidates: equal; kernel {ms:.4f} ms, "
         f"plain {plain:.4f} ms; in range {int((ref != 255).sum())}")
     records["verify_nm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    records.update(search_kernels(idx8, reads[:BATCH], put))
+    return records
+
+
+def search_kernels(idx, batch, put):
+    """search_chain1 and search_chain2 against their plain chains at the
+    Read-list path's shapes on the CLI-default index `idx`: one batch of
+    16,384 mixed-length reads is 32,768 lanes x L 100 at d 11 (k = 0) and
+    98,304 seed lanes x 34 at d 11 (k = 2); the fixup runs on
+    min(B, max(256, B // 8)) = 4,096 lanes x 89 steps."""
+    import torch
+
+    from bwtpu_torch.engine import encode_batch, pick_kmer_depth
+    from bwtpu_torch.kernels.search2 import (_search_ra_chain, _two_gather_search,
+                                             search_chain1, search_chain2,
+                                             start_intervals)
+
+    lat, C, dr = put(idx.search_lattice), put(idx.C), idx.dollar_row
+    records = {}
+    enc0, _ = encode_batch(idx.config, batch, 0)
+    enc2, _ = encode_batch(idx.config, batch, 2)
+    for what, planes, min_len in (
+            ("k=0 reads", (enc0.ra_codes, enc0.ra_amb, enc0.lens), enc0.min_len),
+            ("k=2 seeds", (enc2.seed_ra, enc2.seed_amb, enc2.seed_lens), enc2.min_seed_len)):
+        d = pick_kmer_depth(sorted(idx.kmer_tables), min_len)  # as dispatch_batch
+        kt = put(idx.kmer_tables[d])
+        codes, amb, lens = (put(a) for a in planes)
+        args = (lat, C, dr, codes, amb, lens,
+                *start_intervals(kt, idx.n, codes, amb, lens, d), d)
+        sp, ep, strag = search_chain1(*args)
+        psp, pep, pstrag = _search_ra_chain(*args)
+        torch.cuda.synchronize()
+        ok = ~pstrag  # a kernel thread stops at its lane's first straggle
+        err = max(int((strag != pstrag).sum()),
+                  int((sp - psp)[ok].abs().max()), int((ep - pep)[ok].abs().max()))
+        require(err == 0, f"search_chain1 != plain ({what}): max |diff| {err}")
+        ms = cuda_ms(lambda: search_chain1(*args))
+        plain = cuda_ms(lambda: _search_ra_chain(*args), reps=5)
+        say(f"  search_chain1 {what}, {tuple(codes.shape)} lanes x L, d {d}: equal "
+            f"(flags on all lanes, sp/ep off the {int(pstrag.sum())} flagged); kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms")
+        records.setdefault("search_chain1", dict(max_abs_err=err, ms=ms, plain_ms=plain))
+        if what == "k=0 reads":
+            # the fixup's shape: 4,096 lanes x 89 steps; a quarter of the
+            # lanes start from the depth-4 table's (wide) intervals
+            B = codes.shape[0]
+            cap = min(B, max(256, B // 8))
+            sp0, ep0 = start_intervals(kt, idx.n, codes[:cap], amb[:cap], lens[:cap], d)
+            wsp, wep = start_intervals(put(idx.kmer_tables[4]), idx.n, codes[:cap],
+                                       amb[:cap], lens[:cap], 4)
+            wide = torch.arange(cap, device=codes.device) % 4 == 0
+            args2 = (lat, C, dr, codes[:cap], amb[:cap], lens[:cap],
+                     torch.where(wide, wsp, sp0), torch.where(wide, wep, ep0), d)
+            got, want = search_chain2(*args2), _two_gather_search(*args2)
+            torch.cuda.synchronize()
+            err2 = max(int((a - b).abs().max()) for a, b in zip(got, want))
+            require(err2 == 0, f"search_chain2 != plain: max |diff| {err2}")
+            ms2 = cuda_ms(lambda: search_chain2(*args2))
+            plain2 = cuda_ms(lambda: _two_gather_search(*args2), reps=5)
+            width = (args2[7] - args2[6])[wide]
+            say(f"  search_chain2 {cap} lanes x {codes.shape[1] - d} steps: equal; kernel "
+                f"{ms2:.4f} ms, plain {plain2:.4f} ms; wide starts: median width "
+                f"{int(width.median())}")
+            records["search_chain2"] = dict(max_abs_err=err2, ms=ms2, plain_ms=plain2)
     return records
 
 
@@ -231,10 +310,8 @@ def phase_main(tmp: str, genome: str):
     from bwtpu.samfast import emit_single
     from bwtpu.simulate import simulate_reads
     from bwtpu_torch.engine import Engine
-    from bwtpu_torch.kernels.locate import locate_walk
-    from bwtpu_torch.kernels.verify2 import verify_nm
 
-    say(f"[5] main path at E. coli scale ({len(genome)} bp, {N_READS} reads x 100 bp)")
+    say(f"[5] slice 1's path at E. coli scale ({len(genome)} bp, {N_READS} reads x 100 bp)")
     fa, idx_dir, fq = (os.path.join(tmp, x) for x in ("ecoli.fa", "ecoli_idx", "reads.fq"))
     write_fasta(fa, [("ecoli_sim", genome)])
     t0 = time.perf_counter()
@@ -256,13 +333,6 @@ def phase_main(tmp: str, genome: str):
 
     g_t = torch.from_numpy(dna.encode(genome)).cuda()
     sample = np.sort(np.random.default_rng(SEED + 2).choice(N_READS, N_SAMPLED, replace=False))
-    pats, msks = [], []
-    for i in sample:
-        codes, mask = dna.encode_with_mask(reads[i].seq)
-        pats += [codes, dna.revcomp_codes(codes, mask)[0]]
-        msks += [mask, mask[::-1]]
-    pats = torch.from_numpy(np.stack(pats)).cuda()
-    msks = torch.from_numpy(np.stack(msks)).cuda()
     t_pos = np.array([t["pos"] for t in truth], np.int64)
     t_rev = np.array([t["strand"] == "-" for t in truth])
     t_nm = np.array([t["nm"] for t in truth], np.int64)
@@ -296,8 +366,7 @@ def phase_main(tmp: str, genome: str):
         require(found.all(), f"k={k}: truth missing for {int((~found).sum())} of "
                              f"{len(want)} reads")
 
-        bf = brute_force(g_t, pats, msks, k)
-        bf_set = {(int(sample[pi // 2]), int(p), pi % 2, int(m)) for pi, p, m in bf}
+        bf_set = brute_force_sample(g_t, reads, sample, k)
         in_sample = np.isin(ridx, sample)
         eng_set = {(int(r), int(p), int(s), int(m)) for r, p, s, m in
                    zip(ridx[in_sample], pos[in_sample], rev[in_sample], nm[in_sample])}
@@ -306,12 +375,14 @@ def phase_main(tmp: str, genome: str):
 
         # the main path through the CLI, kernel launches counted
         sam = os.path.join(tmp, f"k{k}.sam")
-        locate_walk.launches = 0
-        verify_nm.launches = 0
+        reset_launches()
         summary = run_cli(["align", idx_dir, fq, "-o", sam, "-k", str(k),
                            "--batch-size", str(BATCH), "--device", "cuda"])
-        launches = {"locate_walk": locate_walk.launches, "verify_nm": verify_nm.launches}
-        require(all(v > 0 for v in launches.values()), f"k={k}: a kernel never ran: {launches}")
+        launches = read_launches()
+        # slice 1's path: the multi-step search, its two-record finisher,
+        # locate and verify; the 1-step mainline is not on it
+        need = ("locate_walk", "verify_nm", "search_chain2")
+        require(all(launches[n] > 0 for n in need), f"k={k}: a kernel never ran: {launches}")
         with open(sam, "rb") as f:
             sam_bytes = f.read()
         require(sam_bytes == b"".join(sam_parts), f"k={k}: CLI SAM differs from the engine pass")
@@ -325,7 +396,154 @@ def phase_main(tmp: str, genome: str):
             f"{summary['heals']}, overflow_reads {summary['overflow_reads']}, "
             f"compact_overflows {summary['compact_overflows']}; launches {launches}")
         stats[k] = launches
+    return idx_dir, {name: sum(s[name] for s in stats.values()) for name in stats[0]}
+
+
+def phase_read_list(tmp: str, genome: str, idx_dir: str, reads, truth):
+    """The Read-list path: FASTA reads of mixed lengths through the port
+    CLI (and, for the hit-set checks, Engine.align_all)."""
+    import numpy as np
+    import torch
+
+    from bwtpu import dna
+    from bwtpu.index import load_index
+    from bwtpu.io import write_fasta
+    from bwtpu.sam import emit_sam
+    from bwtpu_torch.engine import Engine
+
+    lens = np.array([len(r.seq) for r in reads])
+    say(f"[6] Read-list path at E. coli scale ({N_READS} FASTA reads of "
+        f"{lens.min()}-{lens.max()} bp)")
+    fa = os.path.join(tmp, "reads.fa")
+    write_fasta(fa, [(r.rid, r.seq) for r in reads])
+    shards, manifest = load_index(idx_dir)
+    g_t = torch.from_numpy(dna.encode(genome)).cuda()
+    sample = np.sort(np.random.default_rng(SEED + 3).choice(N_READS, N_SAMPLED, replace=False))
+    stats = {}
+    for k in (0, 2):
+        eng = Engine(shards, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hits = eng.align_all(reads, k, batch_size=BATCH)
+        eng_s = time.perf_counter() - t0
+        missing = sum(1 for t, hs in zip(truth, hits) if t["nm"] <= k and not any(
+            h.pos == t["pos"] and h.strand == t["strand"] and h.nm == t["nm"] for h in hs))
+        n_want = sum(t["nm"] <= k for t in truth)
+        require(missing == 0, f"k={k}: truth missing for {missing} of {n_want} reads")
+        bf_set = brute_force_sample(g_t, reads, sample, k)
+        eng_set = {(int(i), h.pos, int(h.strand == "-"), h.nm) for i in sample
+                   for h in hits[i]}
+        require(bf_set == eng_set, f"k={k}: hit sets of the {N_SAMPLED} sampled reads "
+                                   f"differ from brute force ({len(eng_set ^ bf_set)} hits)")
+        want_sam = io.StringIO()
+        emit_sam(reads, hits, manifest.contigs, want_sam)
+
+        sam = os.path.join(tmp, f"list_k{k}.sam")
+        reset_launches()
+        summary = run_cli(["align", idx_dir, fa, "-o", sam, "-k", str(k),
+                           "--batch-size", str(BATCH), "--device", "cuda"])
+        launches = read_launches()
+        need = ("search_chain1", "search_chain2", "locate_walk") + (("verify_nm",) if k else ())
+        require(all(launches[n] > 0 for n in need), f"k={k}: a kernel never ran: {launches}")
+        with open(sam, "rb") as f:
+            sam_bytes = f.read()
+        require(sam_bytes == want_sam.getvalue().encode(),
+                f"k={k}: CLI SAM differs from the engine pass")
+        require(summary["reads"] == N_READS, f"k={k}: CLI aligned {summary['reads']} reads")
+        # the Read-list path reports capacity-cut reads as overflow_reads
+        require(summary["overflow_reads"] == 0 and summary["compact_overflows"] == 0
+                and summary["truncated_reads"] == 0, f"k={k}: truncated reads: {summary}")
+        say(f"  k={k}: truth {n_want}/{n_want} recovered; brute force equal on "
+            f"{N_SAMPLED} reads ({len(bf_set)} hits); hits {sum(map(len, hits))}; "
+            f"engine pass {N_READS / eng_s:.1f} reads/s ({eng_s:.3f} s); CLI FASTA->SAM "
+            f"{summary['reads_per_s']} reads/s ({summary['wall_s']} s); heals "
+            f"{summary['heals']}; launches {launches}")
+        stats[k] = launches
     return {name: sum(s[name] for s in stats.values()) for name in stats[0]}
+
+
+KERNELS = {  # name: (source, TPU kernel it replaces)
+    "locate_walk": ("bwtpu_torch/csrc/locate.cu", "bwtpu/kernels/pallas_step.py:256"),
+    "verify_nm": ("bwtpu_torch/csrc/verify.cu", "bwtpu/kernels/pallas_step.py:302"),
+    "search_chain1": ("bwtpu_torch/csrc/search1.cu", "bwtpu/kernels/pallas_step.py:179"),
+    "search_chain2": ("bwtpu_torch/csrc/search2.cu", "bwtpu/kernels/pallas_step.py:115"),
+}
+
+
+def _wrappers():
+    from bwtpu_torch.kernels.locate import locate_walk
+    from bwtpu_torch.kernels.search2 import search_chain1, search_chain2
+    from bwtpu_torch.kernels.verify2 import verify_nm
+
+    return {"locate_walk": locate_walk, "verify_nm": verify_nm,
+            "search_chain1": search_chain1, "search_chain2": search_chain2}
+
+
+def reset_launches() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def brute_force_sample(g_t, reads, sample, k: int) -> set:
+    """{(read, pos, reverse, nm)} of the sampled reads by brute force,
+    one scan per read length."""
+    import numpy as np
+    import torch
+
+    from bwtpu import dna
+
+    by_len: dict = {}
+    for i in sample:
+        by_len.setdefault(len(reads[i].seq), []).append(int(i))
+    out = set()
+    for ids in by_len.values():
+        pats, msks = [], []
+        for i in ids:
+            codes, mask = dna.encode_with_mask(reads[i].seq)
+            pats += [codes, dna.revcomp_codes(codes, mask)[0]]
+            msks += [mask, mask[::-1]]
+        bf = brute_force(g_t, torch.from_numpy(np.stack(pats)).cuda(),
+                         torch.from_numpy(np.stack(msks)).cuda(), k)
+        out |= {(ids[pi // 2], int(p), pi % 2, int(m)) for pi, p, m in bf}
+    return out
+
+
+def smoke_genome() -> str:
+    """Random E. coli-size genome with one dispersed repeat family."""
+    import numpy as np
+
+    from bwtpu.simulate import ECOLI_SCALE, random_genome
+
+    g = bytearray(random_genome(ECOLI_SCALE, seed=SEED), "ascii")
+    rng = np.random.default_rng(SEED + 4)
+    for p in rng.choice(len(g) - len(REPEAT), size=N_REPEATS, replace=False):
+        g[p:p + len(REPEAT)] = REPEAT.encode()
+    return g.decode()
+
+
+def read_list_reads(genome: str):
+    """N_READS reads of 50-100 bp (each length simulated with <= 2
+    mismatches), shuffled with the seed; returns (reads, truth)."""
+    import numpy as np
+
+    from bwtpu.io import Read
+    from bwtpu.simulate import simulate_reads
+
+    rng = np.random.default_rng(SEED + 5)
+    counts = np.bincount(rng.integers(50, 101, size=N_READS), minlength=101)
+    reads, truth = [], []
+    for L in range(50, 101):
+        r, t = simulate_reads(genome, int(counts[L]), read_len=L, max_mismatches=2,
+                              seed=SEED + 100 + L)
+        reads += r
+        truth += t
+    order = rng.permutation(N_READS)
+    return ([Read(f"q{i}", reads[j].seq) for i, j in enumerate(order)],
+            [truth[j] for j in order])
 
 
 def main() -> int:
@@ -338,24 +556,25 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     import bwtpu_torch  # noqa: F401  (fails outside a checkout of the repo)
-    from bwtpu.simulate import ECOLI_SCALE, random_genome
 
     t_all = time.perf_counter()
     name, smi = phase_card()
     phase_build()
-    genome = random_genome(ECOLI_SCALE, seed=SEED)
-    records = phase_kernels(genome)
+    genome = smoke_genome()
+    t0 = time.perf_counter()
+    list_reads, list_truth = read_list_reads(genome)
+    say(f"  simulated the Read-list reads: {time.perf_counter() - t0:.1f} s")
+    records = phase_kernels(genome, list_reads)
     with tempfile.TemporaryDirectory(prefix="bwtpu_torch_smoke_") as tmp:
         phase_phix(tmp, root)
-        launches = phase_main(tmp, genome)
-    say(f"[6] all phases passed in {time.perf_counter() - t_all:.1f} s on {smi}")
-    sources = {"locate_walk": ("bwtpu_torch/csrc/locate.cu",
-                               "bwtpu/kernels/pallas_step.py:256"),
-               "verify_nm": ("bwtpu_torch/csrc/verify.cu",
-                             "bwtpu/kernels/pallas_step.py:302")}
+        idx_dir, launches = phase_main(tmp, genome)
+        list_launches = phase_read_list(tmp, genome, idx_dir, list_reads, list_truth)
+    say(f"  launches on slice 1's path {launches}; on the Read-list path {list_launches}")
+    say(f"[7] all phases passed in {time.perf_counter() - t_all:.1f} s on {smi}")
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
-         "launches": launches[k], **records[k]} for k in ("locate_walk", "verify_nm")
+        {"name": k, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[k] + list_launches[k], **records[k]}
+        for k, (src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -17,7 +17,16 @@ Engine.dispatch_block + finish_block:
            window. Busy share = busy time / that window. The profiler
            adds host time per launch, so its window can be longer than
            the plain wall; both are printed.
-One JSON line per k on stdout. Needs a CUDA card; there is no fallback.
+One JSON line per k on stdout.
+
+Then the Read-list path (Engine.align_batch on BLOCKS batches of BATCH
+reads of 50-100 bp, the CLI's FASTA route) at k = 0 and k = 2, after one
+warm-up batch: a plain pass and a stage-synced pass (host encoding,
+upload, 1-step search incl. its fixup, compaction, locate_walk,
+verify_nm, scatter back, fetch, host assembly), then the SAM text of the same batches
+timed alone. One JSON line per k, "path": "read_list".
+
+Needs a CUDA card; there is no fallback.
 
 Run:  python scripts/torch_stage_profile.py
 """
@@ -41,12 +50,10 @@ BATCH = 16384
 SEED = 20261016
 
 
-def _stage_hooks(totals, counts):
-    """Wrap the engine's stage functions with synchronized timers."""
+def _timer(totals, counts):
+    """timed(name, fn): fn wrapped in synchronized timers that add to
+    totals[name] and counts[name]."""
     import torch
-
-    from bwtpu_torch import engine
-    from bwtpu_torch.kernels import searchk
 
     def timed(name, fn):
         def run(*a, **kw):
@@ -58,7 +65,24 @@ def _stage_hooks(totals, counts):
             counts[name] += 1
             return out
         return run
+    return timed
 
+
+def _patch(patches, timed):
+    """Replace each (owner, attr, stage name) with its timed version;
+    returns the (owner, attr, original) triples to restore."""
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in patches]
+    for owner, attr, name in patches:
+        setattr(owner, attr, timed(name, getattr(owner, attr)))
+    return saved
+
+
+def _stage_hooks(totals, counts):
+    """Synchronized timers around the block path's stages."""
+    from bwtpu_torch import engine
+    from bwtpu_torch.kernels import searchk
+
+    timed = _timer(totals, counts)
     depth = [0]
     finish = engine.Engine.finish_block
 
@@ -71,19 +95,86 @@ def _stage_hooks(totals, counts):
         finally:
             depth[0] -= 1
 
-    patches = [(engine, "device_prep_packed", "prep"),
-               (engine, "search_early_stop_packed", "search"),
-               (searchk, "_fixup_stragglers_packed", "finisher"),
-               (engine, "compact_counts", "compaction"),
-               (engine, "locate_walk", "locate_walk"),
-               (engine, "verify_nm", "verify_nm"),
-               (engine, "compact", "hit compaction")]
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    saved = _patch([(engine, "device_prep_packed", "prep"),
+                    (engine, "search_early_stop_packed", "search"),
+                    (searchk, "_fixup_stragglers_packed", "finisher"),
+                    (engine, "compact_counts", "compaction"),
+                    (engine, "locate_walk", "locate_walk"),
+                    (engine, "verify_nm", "verify_nm"),
+                    (engine, "compact", "hit compaction")], timed)
     saved.append((engine.Engine, "finish_block", finish))
-    for mod, attr, name in patches:
-        setattr(mod, attr, timed(name, getattr(mod, attr)))
     engine.Engine.finish_block = finish_outer
     return saved
+
+
+def _read_list_hooks(totals, counts):
+    """Synchronized timers around the Read-list path's stages."""
+    from bwtpu_torch import engine
+
+    return _patch([(engine, "encode_batch", "encode (host)"),
+                   (engine, "backward_search_ra", "1-step search + fixup"),
+                   (engine, "compact_counts", "compaction"),
+                   (engine, "locate_walk", "locate_walk"),
+                   (engine, "verify_nm", "verify_nm"),
+                   (engine, "scatter_back", "scatter back"),
+                   (engine, "assemble_hits", "host assembly"),
+                   (engine, "_np", "fetch (D2H)"),
+                   (engine.Engine, "_put", "upload (H2D)")], _timer(totals, counts))
+
+
+def _read_list(genome, shards, contigs, smi):
+    """The Read-list path's passes; prints one JSON line per k."""
+    import numpy as np
+    import torch
+
+    from bwtpu.io import Read
+    from bwtpu.sam import emit_sam
+    from bwtpu.simulate import simulate_reads
+    from bwtpu_torch.engine import Engine
+
+    B = BATCH
+    rng = np.random.default_rng(SEED + 7)
+    lens = rng.integers(50, 101, size=(BLOCKS + 1) * B)
+    reads = []
+    for L in range(50, 101):
+        n = int((lens == L).sum())
+        reads += simulate_reads(genome, n, read_len=L, max_mismatches=2,
+                                seed=SEED + L)[0]
+    reads = [Read(f"q{i}", reads[j].seq) for i, j in enumerate(rng.permutation(len(reads)))]
+    batches = [reads[i:i + B] for i in range(0, len(reads), B)]
+    for k in (0, 2):
+        eng = Engine(shards, device="cuda")
+        eng.align_batch(batches[0], k)  # warm-up
+
+        def run_pass():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hits = [eng.align_batch(b, k) for b in batches[1:]]
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, hits
+
+        wall_s, hits = run_pass()
+        totals, counts = collections.defaultdict(float), collections.Counter()
+        saved = _read_list_hooks(totals, counts)
+        try:
+            stage_wall_s, _ = run_pass()
+        finally:
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
+        t0 = time.perf_counter()
+        for b, h in zip(batches[1:], hits):
+            emit_sam(b, h, contigs, io.StringIO(), header=False)
+        sam_s = time.perf_counter() - t0
+        print(json.dumps({
+            "path": "read_list", "k": k, "blocks": BLOCKS, "batch": B, "card": smi,
+            "wall_ms": wall_s * 1e3, "heals": eng.stats.heals,
+            "reads_per_s": BLOCKS * B / wall_s,
+            "stage_pass_ms": stage_wall_s * 1e3,
+            "stages_ms": {n: totals[n] * 1e3 for n in sorted(totals, key=totals.get,
+                                                             reverse=True)},
+            "stage_calls": dict(counts),
+            "emit_sam_ms": sam_s * 1e3,
+        }), flush=True)
 
 
 def _busy_us(events) -> float:
@@ -123,7 +214,7 @@ def main() -> int:
         write_fasta(fa, [("ecoli_sim", genome)])
         with contextlib.redirect_stdout(io.StringIO()):
             tcli.main(["build-index", fa, idx])  # CLI defaults
-        shards, _ = load_index(idx)
+        shards, manifest = load_index(idx)
     B = BATCH
     reads, _ = simulate_reads(genome, (BLOCKS + 1) * B, read_len=100,
                               max_mismatches=2, seed=SEED + 1)
@@ -171,6 +262,7 @@ def main() -> int:
             "device_busy_ms": busy_us / 1e3,
             "busy_share_of_window": busy_us / 1e6 / window_s,
         }), flush=True)
+    _read_list(genome, shards, manifest.contigs, smi)
     return 0
 
 

@@ -4,13 +4,14 @@ Both run in-process; the port on the CPU (--device cpu)."""
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import cli  # noqa: E402
-from bwtpu.io import read_fasta, write_fastq  # noqa: E402
+from bwtpu.io import read_fasta, write_fasta, write_fastq  # noqa: E402
 from bwtpu.simulate import simulate_reads  # noqa: E402
 from bwtpu_torch import cli as tcli  # noqa: E402
 
@@ -34,6 +35,38 @@ def test_align_sam_byte_equal_to_cli(tmp_path, k):
                          "-k", str(k), "--batch-size", "32", "--device", "cpu"])
     assert got.read_bytes() == want.read_bytes()
     assert summary["reads"] == 70 and summary["truncated_reads"] == 0
+
+
+@pytest.mark.parametrize("k", [0, 2])
+@pytest.mark.parametrize("fmt", ["fasta", "mixed_fastq"])
+def test_read_list_and_ragged_sam_byte_equal_to_cli(tmp_path, fmt, k):
+    """FASTA reads go to the Read-list path, mixed-length FASTQ to the
+    length-bucketed block stream, in both CLIs."""
+    sim, idx = tmp_path / "sim", tmp_path / "idx"
+    cli.main(["simulate", "--scale", "20000", "-o", str(sim), "--n-reads", "10",
+              "--seed", "12"])
+    genome, _ = read_fasta(str(sim / "ref.fa"))
+    tcli.main(["build-index", str(sim / "ref.fa"), str(idx), "--read-len", "60"])
+    reads = []
+    for L in (35, 60):
+        reads += simulate_reads(genome, 40, read_len=L, max_mismatches=2, n_frac=0.01,
+                                seed=L)[0]
+    reads = [reads[j] for j in np.random.default_rng(k).permutation(len(reads))]
+    for i, r in enumerate(reads):
+        r.rid = f"q{i}"
+    path = tmp_path / ("reads.fa" if fmt == "fasta" else "reads.fq")
+    if fmt == "fasta":
+        write_fasta(str(path), [(r.rid, r.seq) for r in reads])
+    else:
+        write_fastq(str(path), reads)
+    want, got = tmp_path / "bwtpu.sam", tmp_path / "port.sam"
+    cli.main(["align", str(idx), str(path), "-o", str(want), "-k", str(k),
+              "--batch-size", "40"])
+    summary = tcli.main(["align", str(idx), str(path), "-o", str(got), "-k", str(k),
+                         "--batch-size", "40", "--device", "cpu"])
+    assert got.read_bytes() == want.read_bytes()
+    assert summary["reads"] == 80 and summary["overflow_reads"] == 0
+    assert got.read_bytes().count(b"\tNM:i:") > 10
 
 
 def test_phix_golden_sam(tmp_path):

@@ -94,11 +94,17 @@ def test_truncation_marks_match_bwtpu():
 
 
 def test_engine_refuses_uncovered_options():
-    idx = build_fm_index(random_genome(3000, seed=4), EngineConfig(sa_rate=4, read_len=40))
-    long, _ = simulate_reads(random_genome(3000, seed=4), 4, read_len=41)
+    """What the port still refuses: block reads longer than read_len
+    (as bwtpu does), sa_rate == 1 (slice 2) and several shards (slice
+    5). Patterns shorter than every k-mer table are covered now
+    (tests/test_torch_batch_parity.py)."""
+    g = random_genome(3000, seed=4)
+    idx = build_fm_index(g, EngineConfig(sa_rate=4, read_len=40))
+    long, _ = simulate_reads(g, 4, read_len=41)
     et = te.Engine([idx], device="cpu")
     with pytest.raises(ValueError, match="not in"):
         et.dispatch_block(ReadBlock.from_reads(long), 2)
-    short, _ = simulate_reads(random_genome(3000, seed=4), 4, read_len=3)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        et.dispatch_block(ReadBlock.from_reads(short), 0)
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        te.Engine([build_fm_index(g, EngineConfig(sa_rate=1))], device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        te.Engine([idx, idx], device="cpu")

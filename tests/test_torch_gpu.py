@@ -76,3 +76,79 @@ def test_verify_nm_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert (want != 255).any() and (want <= 2).any()
+
+
+def _chain_inputs(idx, dev, d: int, B: int, seed: int):
+    """Right-aligned mixed-length patterns as the Read-list path builds
+    them (genome substrings of length 0 or >= d with a few substitutions
+    and N bases) and their start intervals."""
+    from bwtpu.io import Read
+    from bwtpu_torch.engine import encode_batch
+    from bwtpu_torch.kernels.search2 import start_intervals
+
+    rng = np.random.default_rng(seed)
+    reads = []
+    for i, n in enumerate(rng.integers(max(d, 1), L + 1, size=B)):
+        start = int(rng.integers(0, len(GENOME) - n))
+        seq = list(GENOME[start:start + n] if rng.random() > 0.03 else "")
+        for p in rng.integers(0, n, size=int(rng.integers(0, 3))) if seq else ():
+            seq[p] = "ACGTN"[int(rng.integers(0, 5))]
+        reads.append(Read(f"r{i}", "".join(seq)))
+    enc, _ = encode_batch(EngineConfig(read_len=L), reads, 0)
+    codes, amb, lens = (_t(a, dev) for a in (enc.ra_codes, enc.ra_amb, enc.lens))
+    kt = _t(idx.kmer_tables[d], dev) if d else None
+    return (codes, amb, lens, *start_intervals(kt, idx.n, codes, amb, lens, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [0, 4, 8])
+def test_search_chain1_kernel_matches_plain(cuda, d):
+    from bwtpu_torch.kernels.search2 import (_search_ra_chain, backward_search_ra,
+                                             search_chain1)
+
+    idx = build_fm_index(GENOME, EngineConfig(sa_rate=8))
+    lat, C = _t(idx.search_lattice, cuda), _t(idx.C, cuda)
+    codes, amb, lens, sp0, ep0 = _chain_inputs(idx, cuda, d, 6000, seed=d)
+    args = (lat, C, idx.dollar_row, codes, amb, lens, sp0, ep0, d)
+    sp, ep, strag = search_chain1(*args)
+    psp, pep, pstrag = _search_ra_chain(*args)
+    torch.cuda.synchronize()
+    # a kernel thread stops at its first straggle: flagged lanes' sp and
+    # ep are the fixup's to overwrite
+    assert torch.equal(strag, pstrag)
+    ok = ~strag
+    assert torch.equal(sp[ok], psp[ok]) and torch.equal(ep[ok], pep[ok])
+    # 200 kbp: 4-mer intervals (~800 rows) straggle, 8-mer ones (~3) not
+    assert bool(strag.any()) == (d < 8)
+    kt = idx.kmer_tables[d] if d else None
+    got = backward_search_ra(lat, C, idx.dollar_row, idx.n,
+                             None if kt is None else _t(kt, cuda), codes, amb, lens, d)
+    want = backward_search_ra(*(x.cpu() if isinstance(x, torch.Tensor) else x for x in (
+        lat, C, idx.dollar_row, idx.n, None if kt is None else _t(kt, cuda), codes, amb,
+        lens)), d)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [0, 4, 8])
+def test_search_chain2_kernel_matches_plain(cuda, d):
+    from bwtpu_torch.kernels.search2 import _two_gather_search, search_chain2
+
+    idx = build_fm_index(GENOME, EngineConfig(sa_rate=8))
+    lat, C = _t(idx.search_lattice, cuda), _t(idx.C, cuda)
+    codes, amb, lens, sp0, ep0 = _chain_inputs(idx, cuda, d, 3000, seed=d + 1)
+    # wide intervals as well: any [sp, ep) within [0, n] is a valid start
+    rng = np.random.default_rng(d)
+    wide = torch.from_numpy(rng.random(len(lens)) < 0.3).to(cuda)
+    sp_w = _t(rng.integers(0, idx.n, size=len(lens)).astype(np.int32), cuda)
+    ep_w = torch.minimum(sp_w + _t(rng.integers(0, 5000, size=len(lens)).astype(np.int32),
+                                   cuda), torch.tensor(idx.n, device=cuda))
+    sp0 = torch.where(wide, sp_w, sp0)
+    ep0 = torch.where(wide, ep_w, ep0).to(torch.int32)
+    args = (lat, C, idx.dollar_row, codes, amb, lens, sp0, ep0, d)
+    got = search_chain2(*args)
+    want = _two_gather_search(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -8,12 +8,15 @@ import torch
 
 import bwtpu.engine as je
 import bwtpu.kernels.verify as jverify
+import bwtpu.kernels.search2 as jsearch2
 import bwtpu.kernels.verify2 as jverify2
 import bwtpu_torch.engine as te
+import bwtpu_torch.kernels.search2 as tsearch2
 import bwtpu_torch.kernels.verify as tverify
 import bwtpu_torch.kernels.verify2 as tverify2
 from bwtpu.config import EngineConfig
 from bwtpu.index import build_fm_index
+from bwtpu.io import Read
 from bwtpu.simulate import random_genome
 
 torch.set_num_threads(1)
@@ -61,6 +64,55 @@ def test_seed_layout_pick_depth_compact_cap_equal():
                 assert te.compact_cap(n, lf, scale) == je.compact_cap(n, lf, scale)
 
 
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_encode_batch_equal(k):
+    rng = np.random.default_rng(k)
+    cfg = EngineConfig(read_len=40)
+    reads = [Read(f"r{i}", "".join(rng.choice(list("ACGTN"), p=[.24, .24, .24, .24, .04],
+                                              size=int(rng.integers(1, 50)))))
+             for i in range(30)]
+    for batch, pad_to in ((reads, None), (reads, 37), (reads[:1], None), ([], 4),
+                          ([Read("u", "ACGT" * 10)] * 3, None)):
+        got, gB = te.encode_batch(cfg, batch, k, pad_to=pad_to)
+        want, wB = je.encode_batch(cfg, batch, k, pad_to=pad_to)
+        assert gB == wB
+        for name in want._fields:
+            a, b = getattr(got, name), getattr(want, name)
+            if b is None or np.isscalar(b):
+                assert a == b, name
+            else:
+                assert a.dtype == b.dtype, name
+                np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_right_align_equal():
+    rng = np.random.default_rng(0)
+    codes = rng.integers(0, 4, size=(50, 30)).astype(np.int32)
+    amb = (rng.random((50, 30)) < 0.1).astype(np.int32)
+    lens = rng.integers(0, 31, size=50).astype(np.int32)
+    for got, want in zip(tsearch2.right_align(codes, amb, lens),
+                         jsearch2.right_align(codes, amb, lens)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_dense_assembly_equal():
+    rng = np.random.default_rng(5)
+    B, H = 20, 6
+    reads = [Read(f"r{i}", "A" * int(rng.integers(10, 40))) for i in range(B - 3)]
+    pos = rng.integers(-5, 2000, size=(1, 2 * B, H)).astype(np.int32)
+    nm = rng.integers(0, 4, size=(1, 2 * B, H)).astype(np.int32)
+    valid = rng.random((1, 2 * B, H)) < 0.3
+    for m in (nm, None):
+        for got, want in zip(te.dense_to_columns(pos, m, valid),
+                             je.dense_to_columns(pos, m, valid)):
+            np.testing.assert_array_equal(got, want)
+        assert (te.assemble_hits(reads, B, pos, m, valid, [2000], [7])
+                == je.assemble_hits(reads, B, pos, m, valid, [2000], [7]))
+    comp = [(pos.reshape(-1), nm.reshape(-1), np.arange(2 * B * H, dtype=np.int32), 150)]
+    assert (te.assemble_hits_compact(reads, B, comp, 2, H, [2000], [0])
+            == je.assemble_hits_compact(reads, B, comp, 2, H, [2000], [0]))
+
+
 def test_compact_to_columns_equal():
     rng = np.random.default_rng(3)
     Ct, k = 48, 2
@@ -96,12 +148,20 @@ def test_shard_equal_to_bwtpu_upload(sa_rate):
 
 
 def test_upload_refuses_uncovered_indexes():
+    """sa_rate == 1 (slice 2) and several shards (slice 5) are refused; an
+    index without the multi-step lattice uploads with bwtpu's (1, 1)
+    dummy, which sends the pipelines to the 1-step path."""
     g = random_genome(3000, seed=1)
     with pytest.raises(NotImplementedError, match="slice 2"):
         te.upload_index([build_fm_index(g, EngineConfig(sa_rate=1))], "cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        te.upload_index([build_fm_index(g, EngineConfig(sa_rate=4, occ_step=0))], "cpu")
+    idx0 = build_fm_index(g, EngineConfig(sa_rate=4, occ_step=0))
+    got = te.upload_index([idx0], "cpu")
+    ref = jax.tree.map(lambda x: x[0], je.upload_index([idx0]).shard)
+    for name in ("latk", "latk_inv"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name)))
+    assert te.shard_occ_step(got) == je._shard_occ_step(ref) == 0
     idx = build_fm_index(g, EngineConfig(sa_rate=4))
+    assert te.shard_occ_step(te.upload_index([idx], "cpu")) == 3
     with pytest.raises(NotImplementedError, match="slice 5"):
         te.upload_index([idx, idx], "cpu")
 
