@@ -7,12 +7,15 @@ Subcommands:
                a checkpointed batch cursor for resume. Routed as cli.py
                routes them: uniform-length FASTQ -> columnar blocks,
                mixed-length FASTQ -> one block per read length, FASTA
-               (or reads longer than the index's read_len) -> Read lists
+               (or reads longer than the index's read_len) -> Read lists.
+               --tiered (exact first, seed expansion of the rest),
+               --esc-factor and --autotune-caps as in cli.py
 
 Examples:
   python -m bwtpu_torch.cli build-index ref.fa idx/ --sa-rate 8
   python -m bwtpu_torch.cli align idx/ reads.fq -o out.sam -k 2 --device cuda
   python -m bwtpu_torch.cli align idx/ reads.fa -o out.sam -k 2 --device cpu
+  python -m bwtpu_torch.cli align idx/ reads.fq -o out.sam -k 2 --tiered --autotune-caps
 
 The device defaults to cuda and never falls back: without a card the
 align command fails (pass --device cpu for the plain-torch versions).
@@ -21,6 +24,7 @@ align command fails (pass --device cpu for the plain-torch versions).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -31,7 +35,7 @@ from concurrent.futures import ThreadPoolExecutor
 log = logging.getLogger("bwtpu_torch.cli")
 
 
-def _align_block_stream(engine, stream, manifest, out_path, k, bs,
+def _align_block_stream(engine, stream, manifest, out_path, k, tiered, bs,
                         start_batch, cursor_path, mode):
     """Columnar single-end path: ReadBlock batches -> device -> FlatHits
     -> primary SAM records through the C formatter. finish_block runs on
@@ -72,7 +76,7 @@ def _align_block_stream(engine, stream, manifest, out_path, k, bs,
             _save_cursor(cursor_path, bi0 + 1)
 
         for bi, sub in enumerate(stream, start=start_batch):
-            handle = engine.dispatch_block(sub, k, pad_to=bs)
+            handle = engine.dispatch_block(sub, k, pad_to=bs, tiered=tiered)
             inflight.append((bi, time.time(), sub, ex.submit(process, handle)))
             if len(inflight) > 3:
                 drain_one()
@@ -85,8 +89,8 @@ def _align_block_stream(engine, stream, manifest, out_path, k, bs,
     return total, t_start
 
 
-def _align_ragged_block_stream(engine, gen, manifest, out_path, k, start_batch,
-                               cursor_path, mode):
+def _align_ragged_block_stream(engine, gen, manifest, out_path, k, tiered,
+                               start_batch, cursor_path, mode):
     """Mixed-length FASTQ: each input-order chunk dispatches one columnar
     block per distinct read length (padded to the next power of two) and
     emits in INPUT order (samfast.reorder_sam_records). finish_block runs
@@ -134,7 +138,8 @@ def _align_ragged_block_stream(engine, gen, manifest, out_path, k, start_batch,
             handles = []
             for blk, sub in groups:
                 pad = 1 << max(0, (blk.n - 1).bit_length())
-                handles.append((blk, sub, engine.dispatch_block(blk, k, pad_to=pad)))
+                handles.append((blk, sub, engine.dispatch_block(blk, k, pad_to=pad,
+                                                                tiered=tiered)))
             inflight.append((bi, time.time(), ex.submit(process, handles)))
             if len(inflight) > 2:
                 drain_one()
@@ -198,14 +203,16 @@ def cmd_align(args) -> dict:
         raise NotImplementedError("paired-end align is ROADMAP slice 7 of the port")
     if args.rescore:
         raise NotImplementedError("--rescore is ROADMAP slice 7 of the port")
-    if args.tiered or args.autotune_caps:
-        raise NotImplementedError(
-            "--tiered and --autotune-caps are ROADMAP slice 4 of the port")
     shards, manifest = load_index(args.index)
+    if args.esc_factor is not None:
+        shards = [dataclasses.replace(s, config=s.config.replace(esc_factor=args.esc_factor))
+                  for s in shards]
     engine = Engine(shards, device=args.device)
     k = args.k if args.k is not None else shards[0].config.k
     bs = args.batch_size
     read_len = engine.config.read_len
+    if args.autotune_caps:
+        _autotune(engine, args.reads, k, bs)
 
     cursor_path = (args.out + ".cursor") if args.out and args.out != "-" else None
     start_batch = 0
@@ -219,17 +226,40 @@ def cmd_align(args) -> dict:
     res = read_fastq_stream(args.reads, bs, start=start_batch)
     if res is not None and 0 < res[1] <= read_len:
         total, t_start = _align_block_stream(
-            engine, res[2], *where, bs, start_batch, cursor_path, mode)
+            engine, res[2], *where, args.tiered, bs, start_batch, cursor_path, mode)
         return _print_summary(engine, total, t_start)
     if res is None:
         resr = read_fastq_stream_ragged(args.reads, bs, start=start_batch)
         if resr is not None and 0 < resr[1] <= read_len:
             total, t_start = _align_ragged_block_stream(
-                engine, resr[2], *where, start_batch, cursor_path, mode)
+                engine, resr[2], *where, args.tiered, start_batch, cursor_path, mode)
             return _print_summary(engine, total, t_start)
     total, t_start = _align_read_lists(
         engine, read_reads(args.reads), *where, bs, start_batch, cursor_path, mode)
     return _print_summary(engine, total, t_start)
+
+
+def _autotune(engine, reads_path, k, bs) -> None:
+    """Probe the first chunk at the configured ceilings and size the
+    candidate/hit capacities to the measured occupancy
+    (Engine.autotune_caps); prints the same autotune event as cli.py. An
+    input the columnar reader does not take (FASTA, mixed lengths, reads
+    longer than read_len) skips tuning; an unreadable one is logged and
+    skips it, as in cli.py. The probe itself runs outside any handler: a
+    kernel build or launch failure, or a CUDA error, propagates."""
+    from bwtpu.readblock import read_fastq_stream
+
+    try:
+        res = read_fastq_stream(reads_path, bs)
+        sample = next(res[2], None) if res else None
+    except (OSError, ValueError) as e:
+        log.warning("autotune-caps skipped: %s", e)
+        return
+    if sample is None or not 0 < sample.L <= engine.config.read_len:
+        return
+    lf = engine.autotune_caps(sample, k, pad_to=bs)
+    print(json.dumps({"event": "autotune", "loc_factor": lf,
+                      "hit_factor": engine._hf(k)}), file=sys.stderr)
 
 
 def _print_summary(engine, total, t_start) -> dict:
@@ -241,7 +271,7 @@ def _print_summary(engine, total, t_start) -> dict:
         "wall_s": round(dt, 2), "device_s": round(st.device_s, 2),
         "host_s": round(st.host_s, 2), "overflow_reads": st.overflow_reads,
         "compact_overflows": st.compact_overflows, "heals": st.heals,
-        "truncated_reads": st.truncated_reads,
+        "escalated": st.escalated, "truncated_reads": st.truncated_reads,
     }
     print(json.dumps(summary), file=sys.stderr)
     return summary
@@ -286,9 +316,16 @@ def main(argv=None):
     a.add_argument("--resume", action="store_true",
                    help="resume from <out>.cursor after an interrupted run")
     a.add_argument("--paired", help="not covered yet (ROADMAP slice 7)")
-    a.add_argument("--tiered", action="store_true", help="not covered yet (ROADMAP slice 4)")
+    a.add_argument("--tiered", action="store_true",
+                   help="exact-first tiered inexact search: only reads with no "
+                        "exact hit escalate to the seed expansion (stratum "
+                        "contract: primary/MAPQ identical to full enumeration)")
+    a.add_argument("--esc-factor", type=float, default=None,
+                   help="tiered: escalated-read capacity as a fraction of the "
+                        "batch (default: index config, 1.0)")
     a.add_argument("--autotune-caps", action="store_true",
-                   help="not covered yet (ROADMAP slice 4)")
+                   help="probe the first chunk and size the candidate/hit "
+                        "capacities to measured occupancy")
     a.add_argument("--rescore", action="store_true", help="not covered yet (ROADMAP slice 7)")
     a.set_defaults(fn=cmd_align)
 

@@ -3,6 +3,9 @@
 One index shard on one torch device. Two entry points, as in bwtpu:
 
   dispatch_block / finish_block   columnar ReadBlocks of one read length
+                                  (tiered=True: exact first, then the
+                                  seed expansion of the reads with no
+                                  exact hit)
   dispatch_batch / finish_batch   Read lists (align_batch, align_all)
 
 Uniform-length input with the multi-step lattice and d >= 1 runs the
@@ -10,16 +13,18 @@ packed pipelines (both strands stacked, rows [0, B) forward and
 [B, 2B) reverse):
 
   device_prep_packed -> search_early_stop_packed (one per seed slot at
-  k > 0) -> ONE compaction of all candidate rows -> locate_walk (CUDA
-  kernel) -> verify_nm (CUDA kernel)
+  k > 0) -> ONE compaction of all candidate rows -> locate + verify
 
-with compacted outputs ("hits" or "compact"). Mixed-length Read lists,
-indexes without the multi-step lattice and patterns shorter than every
-k-mer table (d = 0) run the 1-step pipelines with dense outputs:
+with compacted outputs ("hits", "compact" or "tiered"). Locate + verify
+is locate_walk then verify_nm (CUDA kernels) at sa_rate > 1, and
+verify_locv (CUDA kernel: one fused locate+verify row per candidate) at
+sa_rate == 1 with the locv table. Mixed-length Read lists, indexes
+without the multi-step lattice and patterns shorter than every k-mer
+table (d = 0) run the 1-step pipelines with dense outputs:
 
   encode_batch (host) or device_prep_uniform -> backward_search_ra
   (search_chain1 kernel, then search_chain2 on the stragglers) ->
-  compaction -> locate_walk [-> verify_nm at k > 0] -> scatter back
+  compaction -> locate [+ verify at k > 0] -> scatter back
 
 The host assembles hits with bwtpu.results. Outputs equal bwtpu's: the
 same hit sets, truncation marks, heals and SAM bytes. Shapes not covered
@@ -44,7 +49,7 @@ from bwtpu.golden import Hit
 from bwtpu.index import OCCK_STEP_FROM_WIDTH, FMIndex
 from bwtpu.io import Read
 from bwtpu.results import FlatHits, flatten_hits
-from bwtpu_torch.kernels.common import i32
+from bwtpu_torch.kernels.common import i32, popcount32
 from bwtpu_torch.kernels.compact import compact, compact_counts, scatter_back
 from bwtpu_torch.kernels.locate import locate_walk
 from bwtpu_torch.kernels.prep import revcomp_packed
@@ -52,14 +57,16 @@ from bwtpu_torch.kernels.search import interval_rows
 from bwtpu_torch.kernels.search2 import backward_search_ra, right_align
 from bwtpu_torch.kernels.searchk import search_early_stop_packed
 from bwtpu_torch.kernels.verify import seed_layout
-from bwtpu_torch.kernels.verify2 import (NM_INVALID, build_text_rows, pack_reads,
-                                         verify_nm)
+from bwtpu_torch.kernels.verify2 import (NM_INVALID, build_locv_rows,
+                                         build_text_rows, locv_row_width,
+                                         pack_reads, verify_locv, verify_nm)
 
 log = logging.getLogger(__name__)
 
 # "hits" mode packs (sel, nm) into one int32 as sel * 4 + nm: it needs
 # 2 * batch * candidate slots * 4 below this bound, else "compact" mode
 HIT_PAYLOAD_MAX = 2**31
+LOCV_MAX_BYTES = 4 << 30  # fused locate+verify table budget on the device
 
 
 class Shard(NamedTuple):
@@ -75,20 +82,31 @@ class Shard(NamedTuple):
     n: int
     text_len: int
     text_rows: torch.Tensor  # int32[n_rows, R] stride-8 text windows
+    locv: torch.Tensor  # int32[n, 1+2W+1] fused locate+verify rows
+    #                     (sa_rate == 1 only); (1, 1) dummy = absent
     kmer_tables: dict  # {depth: int32[4^depth, 2]}
 
 
-def upload_index(shards: list[FMIndex], device) -> Shard:
-    """Put one FMIndex's arrays on `device` as a Shard."""
+def upload_index(shards: list[FMIndex], device, locv: bool | None = None) -> Shard:
+    """Put one FMIndex's arrays on `device` as a Shard.
+
+    locv: build the fused locate+verify table (one row = SA value +
+    verify window, verify2.build_locv_rows). None = auto, as in bwtpu:
+    on when sa_rate == 1, the multi-step lattice is present and the
+    table fits LOCV_MAX_BYTES (~300 MB at E. coli scale, L 100)."""
     if len(shards) != 1:
         raise NotImplementedError(
             f"{len(shards)} index shards: several shards on one GPU are "
             "ROADMAP slice 5 of the port")
     s = shards[0]
-    if s.config.sa_rate == 1:
-        raise NotImplementedError(
-            "sa_rate == 1 (fused locate+verify rows) is ROADMAP slice 2 of the port")
     have_latk = s.occk_lattice is not None
+    read_len = s.config.read_len
+    if locv is None:
+        locv = (s.config.sa_rate == 1 and have_latk
+                and s.n * locv_row_width(read_len) * 4 <= LOCV_MAX_BYTES)
+    if locv and s.config.sa_rate != 1:
+        raise ValueError("locv table requires sa_rate == 1 (ssa must "
+                         "be the full row-ordered suffix array)")
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
@@ -102,7 +120,9 @@ def upload_index(shards: list[FMIndex], device) -> Shard:
         dollar_row=int(s.dollar_row),
         n=int(s.n),
         text_len=int(s.text_len),
-        text_rows=put(build_text_rows(s.text_packed, s.config.read_len)),
+        text_rows=put(build_text_rows(s.text_packed, read_len)),
+        locv=put(build_locv_rows(s.text_packed, s.ssa, read_len) if locv
+                 else np.zeros((1, 1), np.int32)),
         kmer_tables={dd: put(t) for dd, t in s.kmer_tables.items()},
     )
 
@@ -397,14 +417,21 @@ def _inexact_from_intervals(shard: Shard, sp, ep, seed_off, read_words,
     rows_c = rows.reshape(-1).index_select(0, sel)
     lane = sel // max_loc
     b_idx = lane // nS
-    spos_c = locate_walk(shard.lattice, shard.ssa, shard.C, shard.dollar_row,
-                         rows_c, sel_valid, sa_rate)
-    cand_c = spos_c - seed_off.index_select(0, lane)
-    nm_c = verify_nm(
-        shard.text_rows, shard.text_len, cand_c, sel_valid & (spos_c >= 0),
-        read_words.index_select(0, b_idx), amb_bits.index_select(0, b_idx),
-        len_mask.index_select(0, b_idx), lens.index_select(0, b_idx),
-    )
+    off_l = seed_off.index_select(0, lane)
+    reads_c = (read_words.index_select(0, b_idx), amb_bits.index_select(0, b_idx),
+               len_mask.index_select(0, b_idx), lens.index_select(0, b_idx))
+    if sa_rate == 1 and shard.locv.shape[-1] > 1:
+        # fused locate+verify: ONE row per candidate yields the SA value
+        # and the text window (verify2.build_locv_rows)
+        spos_c, nm_c = verify_locv(shard.locv, shard.text_len, rows_c, sel_valid,
+                                   off_l, *reads_c)
+        cand_c = spos_c - off_l
+    else:
+        spos_c = locate_walk(shard.lattice, shard.ssa, shard.C, shard.dollar_row,
+                             rows_c, sel_valid, sa_rate)
+        cand_c = spos_c - off_l
+        nm_c = verify_nm(shard.text_rows, shard.text_len, cand_c,
+                         sel_valid & (spos_c >= 0), *reads_c)
     if compact_output:
         return cand_c, nm_c, sel, count, overflow, comp_over
     total = B2 * nS * max_loc
@@ -459,6 +486,17 @@ def inexact_pipeline_packed(shard: Shard, read_words, amb_bits, *, L, k, d,
                                 max_loc=max_loc, sa_rate=sa_rate,
                                 loc_factor=loc_factor, cap_scale=cap_scale)
     rw2, ab2, lens2, lm2 = device_prep_packed(read_words, amb_bits, L)
+    return _seed_expand_packed(shard, rw2, ab2, lm2, lens2, L=L, k=k, d=d,
+                               max_loc=max_loc, sa_rate=sa_rate,
+                               loc_factor=loc_factor, min_trips=min_trips,
+                               cap_scale=cap_scale, wide_steps=wide_steps)
+
+
+def _seed_expand_packed(shard: Shard, rw2, ab2, lm2, lens2, *, L, k, d, max_loc,
+                        sa_rate, loc_factor, min_trips, cap_scale, wide_steps=0):
+    """Pigeonhole seed expansion on already-prepped both-strand packed
+    rows (shared by inexact_pipeline_packed and the tiered path, which
+    runs it on a compacted escalated subset); compacted outputs."""
     B2 = rw2.shape[0]
     nS = k + 1
     sps, eps, offs, fovs = [], [], [], []
@@ -481,11 +519,95 @@ def inexact_pipeline_packed(shard: Shard, read_words, amb_bits, *, L, k, d,
     )
 
 
+def tiered_pipeline_packed(shard: Shard, read_words, amb_bits, *, L, k, d, d_seed,
+                           max_hits, max_cand, sa_rate, loc_factor,
+                           k2_loc_factor, esc_factor=1.0, min_trips=0,
+                           cap_scale=1, wide_steps=0):
+    """Tiered inexact search: every read runs the full-read exact pass
+    (the k = 0 candidate path); only the reads with no nm == 0 hit on
+    either strand are compacted (esc_factor caps their share) and run
+    the (k+1)-seed expansion.
+
+    Stratum contract, as in bwtpu: reads with no exact hit get their full
+    <= k hit set; reads with one get their complete nm == 0 set plus any
+    nm <= k hits the exact pass verified. Tier 2 gets `wide_steps` as
+    given (the engine passes the full-read depth's count; reference
+    fault C.3, kept for parity).
+
+    Returns (cand1, nm1, sel1, cnt1, cand2, nm2, sel2, cnt2, esc_sel,
+    esc_cnt, ov_rows, comp_over): list 1 in the exact tier's slot space
+    (row = sel1 // max_hits), list 2 in escalated lane space (row2 =
+    sel2 // ((k+1) * max_cand), real row esc_sel[row2 % esc_cap], +B for
+    the reverse half); ov_rows int32[2B] the combined per-row
+    incompleteness count."""
+    step = shard_occ_step(shard)
+    assert step and d >= 1 and d_seed >= 1, (step, d, d_seed)
+    B, W = read_words.shape
+    dev = read_words.device
+    rw2, ab2, lens2, lm2 = device_prep_packed(read_words, amb_bits, L)
+    B2 = 2 * B
+
+    # tier 1: full-read exact candidate pass
+    sp, ep, rem, fov = search_early_stop_packed(
+        shard.lattice, shard.latk, shard.latk_inv, shard.C, shard.dollar_row,
+        shard.kmer_tables[d], rw2, ab2, 0, L, d, step, max_hits, min_trips,
+        cap_scale=cap_scale, wide_steps=min(wide_steps, max(L - d, 0)),
+    )
+    cand1, nm1, sel1, cnt1, ov1, co1 = _inexact_from_intervals(
+        shard, sp, ep, rem, rw2, ab2, lm2, lens2, k=0, max_loc=max_hits,
+        sa_rate=sa_rate, loc_factor=loc_factor, fix_over=fov, cap_scale=cap_scale,
+    )
+    live1 = torch.arange(cand1.shape[0], dtype=torch.int32, device=dev) < cnt1
+    is0 = (live1 & (nm1 == 0)).to(torch.int32)
+    # sel1 < B2 * max_hits on every lane, so row1 is in range
+    has0 = torch.zeros(B2, dtype=torch.int32, device=dev).scatter_reduce(
+        0, (sel1 // max_hits).to(torch.int64), is0, reduce="amax")
+    read_has0 = (has0[:B] + has0[B:]) > 0
+
+    # escalate live reads (not all-ambiguous padding) without one
+    n_amb = popcount32(ab2[:B] & lm2[:B]).sum(1, dtype=torch.int32)
+    escalate = ~read_has0 & (n_amb < torch.clamp(lens2[:B], max=L))
+    esc_cap = min(compact_cap(B, esc_factor, cap_scale), B)
+    esc_sel, esc_cnt, esc_over = compact(escalate, esc_cap)
+    # reads escalated past capacity lose their inexact tier
+    esc_dropped = escalate & (torch.cumsum(escalate.to(torch.int32), 0) > esc_cap)
+
+    # tier 2: seed expansion on the escalated subset
+    live_e = torch.arange(esc_cap, dtype=torch.int32, device=dev) < esc_cnt
+    live_pair = torch.cat([live_e, live_e])
+    both = torch.cat([esc_sel, B + esc_sel])
+    rw2e = rw2.index_select(0, both)
+    # kill the slack lanes beyond esc_cnt (compact pads sel with lane 0):
+    # all-ambiguous rows die in the first search step
+    ab2e = torch.where(live_pair.unsqueeze(1), ab2.index_select(0, both), lm2[:1])
+    lm2e = lm2[:1].expand(2 * esc_cap, W)
+    lens2e = torch.full((2 * esc_cap,), L, dtype=torch.int32, device=dev)
+    cand2, nm2, sel2, cnt2, ov2, co2 = _seed_expand_packed(
+        shard, rw2e, ab2e, lm2e, lens2e, L=L, k=k, d=d_seed, max_loc=max_cand,
+        sa_rate=sa_rate, loc_factor=k2_loc_factor, min_trips=min_trips,
+        cap_scale=cap_scale, wide_steps=wide_steps,
+    )
+
+    # combined per-row incompleteness: tier-1 rows + escalation drops +
+    # tier-2 rows added back to their real rows (dead lanes to the spill
+    # slot B2)
+    ov_rows = torch.cat([ov1 + torch.cat([esc_dropped, esc_dropped]).to(torch.int32),
+                         ov1.new_zeros(1)])
+    spill = torch.full_like(esc_sel, B2)
+    ov_rows = ov_rows.index_add(0, torch.where(live_e, esc_sel, spill), ov2[:esc_cap])
+    ov_rows = ov_rows.index_add(0, torch.where(live_e, B + esc_sel, spill),
+                                ov2[esc_cap:])[:B2]
+    comp_over = co1 + co2 + esc_over
+    return (cand1, nm1, sel1, cnt1, cand2, nm2, sel2, cnt2, esc_sel, esc_cnt,
+            ov_rows, comp_over)
+
+
 def hits_output(out, *, k: int, Ct: int, hit_cap: int):
     """Keep the verified hits (nm <= k) of a compacted candidate list,
     compacted again to hit_cap. Hit-compaction drops join the per-row
     overflow. Returns (cand, sel*4 + nm, count, n_over_rows, comp_over,
-    hit_over, overflow_rows bool[B2])."""
+    hit_over, overflow_rows bool[B2], candidate-stage count); the last
+    feeds the occupancy channel of Engine.autotune_caps."""
     cand_c, nm_c, sel, count, overflow, comp_over = out
     live = torch.arange(sel.shape[0], dtype=torch.int32, device=sel.device) < count
     keep = (nm_c <= k) & live
@@ -495,7 +617,7 @@ def hits_output(out, *, k: int, Ct: int, hit_cap: int):
     payload = torch.stack([cand_c, sel * 4 + nm_c], dim=1).index_select(0, sel2)
     ov_rows = overflow > 0
     return (payload[:, 0], payload[:, 1], cnt2, ov_rows.sum(), comp_over,
-            hover, ov_rows)
+            hover, ov_rows, count)
 
 
 # ---------------------------------------------------------------------------
@@ -511,6 +633,7 @@ class BatchStats:
     compact_overflows: int = 0
     heals: int = 0  # self-healing re-dispatches (doubled-cap retries)
     truncated_reads: int = 0  # reads still capacity-cut after max_heals
+    escalated: int = 0  # tiered dispatch: reads sent to the seed tier
     device_s: float = 0.0
     host_s: float = 0.0
 
@@ -554,6 +677,38 @@ def compact_to_columns(shard_comp, k, Ct):
     )
 
 
+def tiered_to_columns(out, max_hits, max_cand, k, B):
+    """Host decode of tiered_pipeline_packed's outputs (numpy) -> flat
+    (row_idx, p, m) columns, the per-row overflow count and comp_over.
+    Tier-2 rows map from escalated lane space back to real read-strand
+    rows via esc_sel. Dedups on (row, pos) keeping the min nm, so a hit
+    found by both tiers is reported once (numpy copy of bwtpu's)."""
+    (cand1, nm1, sel1, cnt1, cand2, nm2, sel2, cnt2,
+     esc_sel, esc_cnt, ov_rows, comp_over) = [np.asarray(o) for o in out]
+    c1 = int(cnt1)
+    keep1 = nm1[:c1] <= k
+    rows1 = (sel1[:c1] // max_hits)[keep1]
+    p1, m1 = cand1[:c1][keep1], nm1[:c1][keep1]
+    esc_cap = len(esc_sel)
+    Ct2 = (k + 1) * max_cand
+    c2 = int(cnt2)
+    keep2 = nm2[:c2] <= k
+    r2e = (sel2[:c2] // Ct2)[keep2]
+    fwd = r2e < esc_cap
+    real2 = np.where(fwd, esc_sel[r2e % esc_cap],
+                     B + esc_sel[(r2e - esc_cap) % esc_cap])
+    p2, m2 = cand2[:c2][keep2], nm2[:c2][keep2]
+    rows = np.concatenate([rows1, real2])
+    p = np.concatenate([p1, p2])
+    m = np.concatenate([m1, m2])
+    order = np.lexsort((m, p, rows))
+    rows, p, m = rows[order], p[order], m[order]
+    first = np.ones(len(rows), dtype=bool)
+    first[1:] = (rows[1:] != rows[:-1]) | (p[1:] != p[:-1])
+    return (rows[first], p[first], m[first], int((ov_rows > 0).sum()),
+            int(comp_over))
+
+
 def assemble_hits(reads, B, pos, nm, valid, text_lens, offsets):
     """(S, 2B, H) dense device outputs -> per-read Hit lists."""
     s_idx, row_idx, p, m = dense_to_columns(pos, nm, valid)
@@ -568,6 +723,17 @@ def assemble_hits_compact(reads, B, shard_comp, k, Ct, text_lens, offsets):
 
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+def _fetch_all(tensors) -> list[np.ndarray]:
+    """Bring int32 tensors (any shapes, 0-d included) to the host in ONE
+    device-to-host copy: concatenated, fetched, split."""
+    flat = torch.cat([t.reshape(-1).to(torch.int32) for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(t.shape))
+        at += t.numel()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -590,6 +756,14 @@ class Engine:
         self.shard = upload_index(shards, self.device)
         self.kmer_depths = sorted(shards[0].kmer_tables)
         self.stats = BatchStats()
+        # occupancy channel: max observed candidate-stage and hit live
+        # fractions (live rows / lane count) per k, fed by finish_block;
+        # autotune_caps reads them and sets per-k loc_factor / hit_factor
+        # overrides (the config values stay the ceilings)
+        self._cand_live_frac: dict = {}
+        self._hit_live_frac: dict = {}
+        self._lf_override: dict = {}
+        self._hf_override: dict = {}
 
     def _wide_steps(self, d: int) -> int:
         """Two-gather 1-step narrowings before the multi-step loop, sized
@@ -603,6 +777,55 @@ class Engine:
             w += 1
         return w
 
+    # quantized loc_factor ladder: autotune_caps picks from here
+    LF_LADDER = (0.25, 0.35, 0.45, 0.5, 0.6, 0.75, 1.0, 1.25, 1.5,
+                 2.0, 3.0, 4.0, 6.0)
+
+    def autotune_caps(self, block, k: int | None = None,
+                      margin: float = 1.12, pad_to: int | None = None):
+        """Occupancy-adaptive capacities, as in bwtpu: dispatch `block`
+        once at the current caps, observe the candidate-stage live
+        fraction, and point this k's loc_factor at the smallest ladder
+        value covering live * margin, never above the configured ceiling
+        (healing absorbs batches that beat the margin); the hit buffer
+        likewise from the live hit fraction. Returns the chosen
+        loc_factor. A probe that overflowed even after healing keeps the
+        ceilings."""
+        k = self.config.k if k is None else k
+        self._cand_live_frac.pop(k, None)
+        self._hit_live_frac.pop(k, None)
+        ov0 = self.stats.overflow_reads + self.stats.compact_overflows
+        self.finish_block(self.dispatch_block(block, k, pad_to=pad_to))
+        if self.stats.overflow_reads + self.stats.compact_overflows > ov0:
+            log.warning("autotune_caps: probe batch overflowed; keeping "
+                        "configured ceilings for k=%d", k)
+            return self._lf(k)
+        live = self._cand_live_frac.get(k)
+        if live is None:  # dense fallback path: no occupancy channel
+            return self._lf(k)
+        lf = next((v for v in self.LF_LADDER if v >= live * margin),
+                  self.config.loc_factor)
+        lf = min(lf, self.config.loc_factor)
+        if lf != self._lf(k):
+            log.info("autotune_caps: k=%d live frac %.3f -> loc_factor %s "
+                     "(was %s)", k, live, lf, self._lf(k))
+        self._lf_override[k] = lf
+        hlive = self._hit_live_frac.get(k)
+        if hlive is not None:
+            hf = next((v for v in self.LF_LADDER if v >= hlive * margin),
+                      self.config.hit_factor)
+            self._hf_override[k] = min(hf, self.config.hit_factor)
+        return lf
+
+    def _lf(self, k: int) -> float:
+        """Effective base loc_factor for this k (autotune override or the
+        configured ceiling)."""
+        return self._lf_override.get(k, self.config.loc_factor)
+
+    def _hf(self, k: int) -> float:
+        """Effective base hit_factor for this k."""
+        return self._hf_override.get(k, self.config.hit_factor)
+
     def _caps(self, k: int, level: int):
         """(max_hits, max_cand, loc_factor, hit_factor) at heal level
         `level`: every capacity doubles per level; from level 1 the hit
@@ -612,8 +835,8 @@ class Engine:
         mh = cfg.max_hits * f
         mc = cfg.max_cand * f
         max_loc = mc if k else mh
-        lf = min(cfg.loc_factor * f, (k + 1) * max_loc)
-        hf = cfg.hit_factor if level == 0 else lf
+        lf = min(self._lf(k) * f, (k + 1) * max_loc)
+        hf = self._hf(k) if level == 0 else lf
         return mh, mc, lf, hf
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
@@ -633,6 +856,21 @@ class Engine:
                                          max_hits=mh, **opts)
         return inexact_pipeline_packed(self.shard, rw, ab, L=L, k=k, d=d,
                                        max_loc=mc, **opts)
+
+    def _run_tiered(self, rw, ab, L: int, k: int, level: int):
+        """Packed forward reads -> tiered_pipeline_packed's 12 outputs:
+        tier 1 at the k = 0 caps, tier 2 at this k's caps."""
+        mh0, _, lf0, _ = self._caps(0, level)
+        _, mc, lf, _ = self._caps(k, level)
+        d_full = pick_kmer_depth(self.kmer_depths, L)
+        return tiered_pipeline_packed(
+            self.shard, self._put(rw), self._put(ab), L=L, k=k, d=d_full,
+            d_seed=pick_kmer_depth(self.kmer_depths, L // (k + 1)),
+            max_hits=mh0, max_cand=mc, sa_rate=self.config.sa_rate,
+            loc_factor=lf0, k2_loc_factor=lf, esc_factor=self.config.esc_factor,
+            min_trips=self.config.min_trips, cap_scale=1 << level,
+            # the full-read depth's count for both tiers (C.3)
+            wide_steps=self._wide_steps(d_full))
 
     # ---- Read lists (align_batch, align_all) ----
 
@@ -784,13 +1022,17 @@ class Engine:
     # ---- columnar ReadBlocks (the CLI's FASTQ paths) ----
 
     def dispatch_block(self, block, k: int | None = None,
-                       pad_to: int | None = None, _level: int = 0):
+                       pad_to: int | None = None, _level: int = 0,
+                       tiered: bool = False):
         """Run a uniform-length columnar ReadBlock (bwtpu.readblock)
         through the packed pipelines. pad_to keeps batch shapes fixed
         across a stream; pad rows are all-ambiguous and die at the start
         table. Output modes, as in bwtpu: "hits" (one compacted hit
         list), "compact" when the hit payload sel*4 + nm would overflow
-        int32, "dense" on the 1-step fallback. Returns a handle for
+        int32, "dense" on the 1-step fallback, "tiered" for tiered=True
+        at k > 0 (tiered_pipeline_packed; without the multi-step lattice
+        the full inexact pipeline runs instead, whose results are a
+        superset of the tiered contract). Returns a handle for
         finish_block."""
         from bwtpu.readblock import pack_block
 
@@ -806,6 +1048,12 @@ class Engine:
             ab = np.concatenate([ab, np.full((Bp - block.n, W), 0x55555555, np.int32)])
         d = pick_kmer_depth(self.kmer_depths, L if k == 0 else L // (k + 1))
         compact_out = _has_multistep(self.shard, d)
+        if tiered and k > 0 and compact_out:
+            out = self._run_tiered(rw, ab, L, k, _level)
+            return ("block", block, Bp, k, out, time.perf_counter(), "tiered", _level)
+        if tiered and k > 0:
+            log.debug("tiered dispatch unavailable without the multi-step "
+                      "lattice; running the full inexact pipeline")
         mh, mc, lf, hf = self._caps(k, _level)
         Ct = (k + 1) * mc if k else mh
         hits = compact_out and 2 * Bp * Ct * 4 < HIT_PAYLOAD_MAX
@@ -830,17 +1078,28 @@ class Engine:
         can_heal = cfg.heal_overflow and level < cfg.max_heals
         hit_over = 0
         if mode == "hits":
-            hc, hm, cnt2, n_ov, co, hover, ov_rows = out
-            cnt, n_over, compact_over, hit_over = torch.stack(
-                [x.to(torch.int64) for x in (cnt2, n_ov, co, hover)]).tolist()
+            hc, hm, cnt2, n_ov, co, hover, ov_rows, count = out
+            cnt, n_over, compact_over, hit_over, cand_live = torch.stack(
+                [x.to(torch.int64) for x in (cnt2, n_ov, co, hover, count)]).tolist()
             hm = _np(hm[:cnt])
             shard_comp = [(_np(hc[:cnt]), hm % 4, hm // 4, cnt)]
+            self._observe(self._cand_live_frac, k, cand_live, Bp)
+            self._observe(self._hit_live_frac, k, cnt, Bp)
         elif mode == "compact":
             cand_c, nm_c, sel, count, overflow, co = out
             ov_rows = overflow > 0
             cnt, n_over, compact_over = torch.stack(
                 [x.to(torch.int64) for x in (count, ov_rows.sum(), co)]).tolist()
             shard_comp = [(_np(cand_c[:cnt]), _np(nm_c[:cnt]), _np(sel[:cnt]), cnt)]
+            self._observe(self._cand_live_frac, k, cnt, Bp)
+        elif mode == "tiered":
+            # the 12 outputs in one grouped transfer
+            out_np = _fetch_all(out)
+            rows_t, p_t, m_t, n_over, compact_over = tiered_to_columns(
+                out_np, self._caps(0, level)[0], mc, k, Bp)
+            ov_rows = out_np[10] > 0
+            # added at every heal level, as bwtpu does (reference fault C.2)
+            self.stats.escalated += int(out_np[9])
         else:  # dense: (pos, valid, overflow, loc_over) or (cand, nm, valid, ...)
             pos, nm, valid, overflow, co = out if k else (out[0], None, *out[1:])
             ov_rows = overflow > 0
@@ -849,8 +1108,8 @@ class Engine:
         self.stats.device_s += time.perf_counter() - t_disp
         if (n_over or compact_over or hit_over) and can_heal:
             return self._heal_block(block, k, Bp, level, n_over,
-                                    compact_over + hit_over)
-        trunc_rows = _np(ov_rows) if n_over else None
+                                    compact_over + hit_over, tiered=mode == "tiered")
+        trunc_rows = (ov_rows if mode == "tiered" else _np(ov_rows)) if n_over else None
         if hit_over:
             log.warning(
                 "align block: hit buffer overflowed by %d hits after %d heals "
@@ -862,6 +1121,8 @@ class Engine:
             s_idx, row_idx, p, m = dense_to_columns(
                 _np(pos)[None], None if nm is None else _np(nm)[None],
                 _np(valid)[None])
+        elif mode == "tiered":
+            s_idx, row_idx, p, m = np.zeros(len(rows_t), np.int64), rows_t, p_t, m_t
         else:
             s_idx, row_idx, p, m = compact_to_columns(shard_comp, k, Ct)
         if compact_over:
@@ -893,7 +1154,11 @@ class Engine:
         self.stats.host_s += time.perf_counter() - t1
         return flat
 
-    def _heal_block(self, block, k, Bp, level, n_over, compact_over):
+    def _observe(self, fracs: dict, k: int, live: int, Bp: int) -> None:
+        """Raise fracs[k] to live rows / lanes (2 * Bp read-strand rows)."""
+        fracs[k] = max(fracs.get(k, 0.0), live / (2 * Bp))
+
+    def _heal_block(self, block, k, Bp, level, n_over, compact_over, tiered=False):
         """Re-dispatch a block with doubled caps (self-healing)."""
         self.stats.heals += 1
         log.info(
@@ -901,4 +1166,5 @@ class Engine:
             "with 2^%d x caps", n_over, compact_over, level + 1,
         )
         return self.finish_block(
-            self.dispatch_block(block, k, pad_to=Bp, _level=level + 1))
+            self.dispatch_block(block, k, pad_to=Bp, _level=level + 1,
+                                tiered=tiered))

@@ -1,11 +1,13 @@
-"""Batched LF-walk locate at sa_rate > 1 (counterpart of
-bwtpu/kernels/locate.py).
+"""Batched locate (counterpart of bwtpu/kernels/locate.py).
 
-`locate_walk` is the entry point: on CUDA tensors it launches the
-hand-written kernel csrc/locate.cu (one thread per lane walks up to
-sa_rate dependent records and exits at its mark bit); on CPU tensors it
-runs `locate_rows`, the plain-torch version of the same function, which
-the tests hold against bwtpu and chip_smoke.py holds the kernel against.
+`locate_walk` is the entry point. At sa_rate > 1, on CUDA tensors it
+launches the hand-written kernel csrc/locate.cu (one thread per lane
+walks up to sa_rate dependent records and exits at its mark bit); on CPU
+tensors it runs `locate_rows`, the plain-torch version of the same
+function, which the tests hold against bwtpu and chip_smoke.py holds the
+kernel against. At sa_rate == 1 every row is sampled and ssa is the
+suffix array, so locate is one masked element gather on any device, as
+in the reference: no walk and no kernel.
 
 Index ranges: valid rows lie in [0, n), so every record index r >> 7 is
 a lattice row; a found lane's rank is < len(ssa); a lane not found in
@@ -21,19 +23,14 @@ import torch
 from bwtpu_torch.kernels import _build, common
 
 
-def _not_covered(sa_rate: int):
-    if sa_rate == 1:
-        raise NotImplementedError(
-            "sa_rate == 1 (one ssa gather / fused locate+verify rows) is "
-            "ROADMAP slice 2 of the port")
-
-
 def locate_rows(lattice, ssa, C, dollar_row: int, rows, valid, sa_rate: int):
     """Plain torch: positions int32[B] of SA rows, -1 where not valid.
 
     The reference's fixed sa_rate-trip masked loop: done lanes gather
-    block 0, found lanes latch (rank, steps)."""
-    _not_covered(sa_rate)
+    block 0, found lanes latch (rank, steps). At sa_rate == 1, one ssa
+    gather (lanes not valid gather row 0)."""
+    if sa_rate == 1:
+        return torch.where(valid, ssa.index_select(0, torch.where(valid, rows, 0)), -1)
     B = rows.shape[0]
     dev = rows.device
     r = torch.where(valid, rows, 0)
@@ -68,10 +65,9 @@ def locate_walk(lattice, ssa, C, dollar_row: int, rows, valid, sa_rate: int):
     and the sa_rate-trip loop around it. On the H100 it is bound by the
     latency of up to sa_rate dependent 128 B record loads per lane (the
     lattice sits in L2 at bacterial scale); each thread stops at its
-    mark bit."""
-    _not_covered(sa_rate)
+    mark bit. At sa_rate == 1 no kernel runs (one ssa gather)."""
     dev = rows.device
-    if dev.type == "cpu":
+    if dev.type == "cpu" or sa_rate == 1:
         return locate_rows(lattice, ssa, C, dollar_row, rows, valid, sa_rate)
     if dev.type != "cuda":
         raise ValueError(f"locate_walk: no kernel for device {dev}")

@@ -4,13 +4,22 @@ bwtpu/kernels/verify2.py).
 Host part: numpy copies of the reference's helpers, which live in a
 jax-importing module (tests hold each copy equal to the original).
 
-Device part: `verify_nm` is the entry point. On CUDA tensors it launches
-the hand-written kernel csrc/verify.cu (one thread per candidate fuses
-the stride-8 text-row load, the bit-phase funnel and the popcount); on
-CPU tensors it runs `verify_packed`, the plain-torch version of the same
-function. Index range of the row gather: an in-range candidate has
-cand + len <= text_len, so row (cand >> 4) >> 3 exists; other lanes use
-position 0.
+Device part: two entry points, each launching a hand-written kernel of
+csrc/verify.cu on CUDA tensors and running its plain-torch version on
+CPU tensors:
+
+  verify_nm    sa_rate > 1 (or locv off): one thread per candidate fuses
+               the stride-8 text-row load, the bit-phase funnel and the
+               popcount; plain version `verify_packed`. Index range of
+               the row gather: an in-range candidate has cand + len <=
+               text_len, so row (cand >> 4) >> 3 exists; other lanes use
+               position 0.
+  verify_locv  sa_rate == 1 with the fused locate+verify table: one
+               thread per candidate loads its locv row (SA value + text
+               window) and returns the position and the mismatch count;
+               plain version `verify_locv_plain` (row gather +
+               `verify_packed_locv`). Valid rows lie in [0, n); other
+               lanes gather row 0.
 """
 
 from __future__ import annotations
@@ -64,6 +73,54 @@ def pack_reads(codes: np.ndarray, amb: np.ndarray, lens: np.ndarray):
     return pack(codes), pack(amb), pack(in_len)
 
 
+def locv_row_width(read_len: int) -> int:
+    """Words per fused locate+verify row: SA value + a text window wide
+    enough for any candidate start in [SA-read_len, SA] at any phase."""
+    W = (read_len + 15) // 16
+    return 1 + 2 * W + 1
+
+
+def build_locv_rows(text_packed: np.ndarray, ssa_full: np.ndarray,
+                    read_len: int) -> np.ndarray:
+    """Host: fused locate+verify rows for sa_rate == 1 indexes. Row r =
+    [SA[r], text words [ws(r), ws(r) + 2W+1)] with ws(r) =
+    clip((SA[r] >> 4) - W, 0, n_words-1)."""
+    W = (read_len + 15) // 16
+    R2 = 2 * W + 1
+    w = text_packed.view(np.int32)
+    nw = len(w)
+    padded = np.concatenate([w, np.zeros(R2, dtype=np.int32)])
+    sw = np.lib.stride_tricks.sliding_window_view(padded, R2)
+    ws = np.clip((ssa_full.astype(np.int64) >> 4) - W, 0, max(nw - 1, 0))
+    out = np.empty((len(ssa_full), 1 + R2), dtype=np.int32)
+    out[:, 0] = ssa_full
+    out[:, 1:] = sw[ws]
+    return out
+
+
+def _window_nm(lo, hi, pos, read_words, amb_bits, len_mask):
+    """Mismatch count of each candidate from its aligned text words:
+    lo/hi are int64 u32 words [w, w+W) and [w+1, w+W+1) of the window
+    that starts at word pos >> 4."""
+    ob = ((pos & 15) * 2).to(torch.int64).unsqueeze(1)  # bit phase
+    window = (lo >> ob) | torch.where(ob == 0, 0, (hi << (32 - ob)) & MASK32)
+    x = window ^ u32(read_words)
+    pair = (x | (x >> 1)) & EVEN
+    pair = (pair | u32(amb_bits)) & u32(len_mask)
+    return popcount32(pair).sum(1, dtype=torch.int32)
+
+
+def _funnel(raw, shift, n_bits: int):
+    """Shift each row of raw left by `shift` words (zero fill), one
+    log-step select per bit b < 2**n_bits; bits above are ignored."""
+    b = 1
+    for _ in range(n_bits):
+        shifted = torch.cat([raw[:, b:], torch.zeros_like(raw[:, :b])], dim=1)
+        raw = torch.where(((shift & b) != 0).unsqueeze(1), shifted, raw)
+        b <<= 1
+    return raw
+
+
 def verify_packed(text_rows, text_len: int, cand, cvalid, read_words,
                   amb_bits, len_mask, lens):
     """Plain torch: nm int32[Cc]; NM_INVALID where invalid/out of range."""
@@ -73,21 +130,39 @@ def verify_packed(text_rows, text_len: int, cand, cvalid, read_words,
     w_idx = pos >> 4
     raw = text_rows.index_select(0, w_idx >> 3)
     # align the window to word w_idx: funnel-select by w_idx & 7
-    sub = w_idx & (TEXT_ROW_STRIDE - 1)
-    b = 1
-    while b < TEXT_ROW_STRIDE:
-        shifted = torch.cat([raw[:, b:], torch.zeros_like(raw[:, :b])], dim=1)
-        raw = torch.where(((sub & b) != 0).unsqueeze(1), shifted, raw)
-        b <<= 1
-    ob = ((pos & 15) * 2).to(torch.int64).unsqueeze(1)  # bit phase
-    lo = u32(raw[:, :W])
-    hi = u32(raw[:, 1 : W + 1])
-    window = (lo >> ob) | torch.where(ob == 0, 0, (hi << (32 - ob)) & MASK32)
-    x = window ^ u32(read_words)
-    pair = (x | (x >> 1)) & EVEN
-    pair = (pair | u32(amb_bits)) & u32(len_mask)
-    nm = popcount32(pair).sum(1, dtype=torch.int32)
+    raw = _funnel(raw, w_idx & (TEXT_ROW_STRIDE - 1), TEXT_ROW_STRIDE.bit_length() - 1)
+    nm = _window_nm(u32(raw[:, :W]), u32(raw[:, 1 : W + 1]), pos, read_words,
+                    amb_bits, len_mask)
     return torch.where(in_range, nm, NM_INVALID)
+
+
+def verify_packed_locv(rec, text_len: int, cand, cvalid, read_words, amb_bits,
+                       len_mask, lens):
+    """Plain torch verify from pre-gathered locv rows (build_locv_rows):
+    nm int32[Cc], NM_INVALID where invalid/out of range. The candidate's
+    window is aligned out of the row by a log-step word funnel (q <= W
+    word shifts), then the usual bit-phase shift + XOR/popcount."""
+    W = read_words.shape[1]
+    in_range = cvalid & (cand >= 0) & (cand + lens <= text_len)
+    nw = (text_len + 15) >> 4
+    ws = ((rec[:, 0] >> 4) - W).clamp(0, max(nw - 1, 0))
+    q = torch.where(in_range, (cand >> 4) - ws, 0)
+    win = _funnel(rec[:, 1:], q, W.bit_length())
+    pos = torch.where(in_range, cand, 0)
+    nm = _window_nm(u32(win[:, :W]), u32(win[:, 1 : W + 1]), pos, read_words,
+                    amb_bits, len_mask)
+    return torch.where(in_range, nm, NM_INVALID)
+
+
+def verify_locv_plain(locv, text_len: int, rows, valid, off, read_words,
+                      amb_bits, len_mask, lens):
+    """Plain torch locate + verify at sa_rate == 1: (pos, nm) int32[Cc].
+    pos = SA[row] (-1 where not valid); nm of the candidate pos - off."""
+    rec = locv.index_select(0, torch.where(valid, rows, 0))
+    spos = torch.where(valid, rec[:, 0], -1)
+    nm = verify_packed_locv(rec, text_len, spos - off, valid & (spos >= 0),
+                            read_words, amb_bits, len_mask, lens)
+    return spos, nm
 
 
 def verify_nm(text_rows, text_len: int, cand, cvalid, read_words, amb_bits,
@@ -136,11 +211,64 @@ def verify_nm(text_rows, text_len: int, cand, cvalid, read_words, amb_bits,
 verify_nm.launches = 0  # kernel launches since the last reset
 
 
+def verify_locv(locv, text_len: int, rows, valid, off, read_words, amb_bits,
+                len_mask, lens):
+    """(pos, nm) int32[Cc] at sa_rate == 1 from the fused locate+verify
+    table: pos = SA[row] (-1 where not valid), nm the mismatch count of
+    the candidate pos - off (NM_INVALID where out of range). The CUDA
+    kernel on CUDA tensors, `verify_locv_plain` on CPU tensors, else an
+    error.
+
+    The kernel replaces the row take, the funnel and the popcount of
+    bwtpu/engine.py:548-554 (verify2.py:129, verify_packed_locv): the jnp
+    code XLA fused there, not a Pallas kernel. On the H100 it is bound by
+    one dependent 64 B row load per candidate (L 100) from a table of
+    ~300 MB at E. coli scale, plus 3 x W read-side words."""
+    dev = rows.device
+    if dev.type == "cpu":
+        return verify_locv_plain(locv, text_len, rows, valid, off, read_words,
+                                 amb_bits, len_mask, lens)
+    if dev.type != "cuda":
+        raise ValueError(f"verify_locv: no kernel for device {dev}")
+    check = _build.check_tensor
+    check("verify_locv", "locv", locv, torch.int32, 2, dev)
+    for name, t in (("rows", rows), ("off", off), ("lens", lens)):
+        check("verify_locv", name, t, torch.int32, 1, dev)
+    check("verify_locv", "valid", valid, torch.bool, 1, dev)
+    for name, t in (("read_words", read_words), ("amb_bits", amb_bits),
+                    ("len_mask", len_mask)):
+        check("verify_locv", name, t, torch.int32, 2, dev)
+    Cc, W = read_words.shape
+    if not (valid.shape == off.shape == lens.shape == rows.shape == (Cc,)
+            and amb_bits.shape == len_mask.shape == (Cc, W)):
+        raise ValueError("verify_locv: per-candidate inputs disagree in shape")
+    if locv.shape[1] != 2 * W + 2:
+        raise ValueError(f"verify_locv: locv rows are {locv.shape[1]} words, "
+                         f"reads of {W} words need {2 * W + 2}")
+    pos, nm = torch.empty_like(rows), torch.empty_like(rows)
+    lib = _lib()
+    rc = lib.bwtpu_verify_locv(
+        locv.data_ptr(), int(text_len), rows.data_ptr(),
+        valid.data_ptr(), off.data_ptr(), read_words.data_ptr(),
+        amb_bits.data_ptr(), len_mask.data_ptr(), lens.data_ptr(), Cc, W,
+        pos.data_ptr(), nm.data_ptr(), _build.stream_of(rows),
+    )
+    _build.check(lib, rc, "verify_locv")
+    _build.count_launch(verify_locv)
+    return pos, nm
+
+
+verify_locv.launches = 0  # kernel launches since the last reset
+
+
 def _lib():
     lib = _build.library("verify")
     f = lib.bwtpu_verify_nm
     if f.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         f.restype = ctypes.c_int
-        f.argtypes = [p, i, ctypes.c_longlong, p, p, p, p, p, p, i, i, p, p]
+        f.argtypes = [p, i, ll, p, p, p, p, p, p, i, i, p, p]
+        g = lib.bwtpu_verify_locv
+        g.restype = ctypes.c_int
+        g.argtypes = [p, ll, p, p, p, p, p, p, p, i, i, p, p, p]
     return lib

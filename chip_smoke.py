@@ -5,10 +5,13 @@
 
 Phases, in order; any failure raises and the exit code is not 0:
   1. the card: nvidia-smi name + power limit, torch's device name;
-  2. build the four CUDA kernels (nvcc, sm_90a) from bwtpu_torch/csrc,
+  2. build the six CUDA kernels (nvcc, sm_90a) from bwtpu_torch/csrc,
      one nvcc per source, all started together;
-  3. each kernel against its plain-torch version on the card at
-     main-path shapes (exact equality), with CUDA-event times of both;
+  3. `build-index --sa-rate 1` of the E. coli-size genome (phase 7's
+     index); each kernel against its plain-torch version on the card at
+     main-path shapes (exact equality), with CUDA-event times of both:
+     verify_locv at that index's locv table, row_gather_sum at that
+     table (Wr 16) and at the 9.3 MB multi-step lattice (Wr 128);
   4. phiX174 through the port's CLI on the card, byte-equal to
      data/phiX174_golden.sam;
   5. slice 1's path at E. coli scale: `build-index` with the CLI
@@ -21,7 +24,18 @@ Phases, in order; any failure raises and the exit code is not 0:
      as FASTA through the port CLI at k = 0 and k = 2, batch 16,384
      (Engine.dispatch_batch -> backward_search_ra); the same checks, and
      all four kernels launched;
-  7. the result line.
+  7. bench.py's single-end configuration: phase 3's sa_rate 1 index (the
+     locv table on), the same FASTQ through the port CLI at batch 16,384:
+     `-k 0 --autotune-caps`, `-k 2 --autotune-caps` and `-k 2 --tiered
+     --autotune-caps`. The k = 0 and k = 2 SAM byte-equal to phase 5's;
+     tiered holds the stratum contract against brute force on 256
+     sampled reads; truth; 0 truncated reads; the tuned loc_factor <= its
+     ceiling; verify_locv and search_chain2 launched, locate_walk and
+     verify_nm not;
+  8. the A/B entry point of the row gather (scripts/torch_gather_ab.py)
+     at a locv row's width, at the text-row table's size (phase 3 timed
+     the locv table's);
+  9. the result line.
 
 The genome is random at E. coli size (4,641,652 bp) with one dispersed
 repeat family (300 copies of a 12 bp motif), so that some 11-mer start
@@ -45,6 +59,7 @@ import time
 
 SEED = 20261016
 N_READS = 131072
+GATHER_IDX = 1 << 20  # indices of one row_gather_sum call
 BATCH = 16384
 N_SAMPLED = 256
 LANES = 65536  # compacted candidate lanes of one k = 2 batch (cap = 2 x 2B)
@@ -99,7 +114,7 @@ def phase_build():
 
     say("[2] kernel build (nvcc -gencode arch=compute_90a,code=sm_90a), in parallel")
     t0 = time.perf_counter()
-    names = ("locate", "verify", "search1", "search2")
+    names = ("locate", "verify", "search1", "search2", "gather")
     _build.build_all(names)
     for name in names:
         info = _build.build_info[name]
@@ -110,9 +125,22 @@ def phase_build():
     say(f"  build total {time.perf_counter() - t0:.2f} s")
 
 
-def phase_kernels(genome: str, reads):
-    """Kernel vs plain at main-path shapes; returns the kernel records.
-    `reads` are the Read-list phase's mixed-length reads."""
+def build_sa1_index(tmp: str, fa: str) -> str:
+    """`build-index --sa-rate 1` through the port CLI, otherwise at the
+    CLI defaults; returns the index directory."""
+    idx_dir = os.path.join(tmp, "ecoli_idx_sa1")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as built:
+        run_cli(["build-index", fa, idx_dir, "--sa-rate", "1"])
+    say(f"  build-index --sa-rate 1: {time.perf_counter() - t0:.1f} s; "
+        f"{built.getvalue().strip()}")
+    return idx_dir
+
+
+def phase_kernels(tmp: str, genome: str, fa: str, reads):
+    """Kernel vs plain at main-path shapes; returns the kernel records
+    and the sa_rate 1 index directory. `reads` are the Read-list phase's
+    mixed-length reads."""
     import numpy as np
     import torch
 
@@ -124,6 +152,7 @@ def phase_kernels(genome: str, reads):
                                              verify_packed)
 
     say("[3] kernels vs plain torch on the card (exact equality)")
+    sa1_dir = build_sa1_index(tmp, fa)
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
@@ -160,6 +189,7 @@ def phase_kernels(genome: str, reads):
             idx8 = idx
             text_rows = put(build_text_rows(idx.text_packed, 100))
             text_len = idx.text_len
+            latk = put(idx.occk_lattice)
 
     L, W = 100, 7
     cand = rng.integers(-10, text_len + 10, size=LANES).astype(np.int32)
@@ -183,7 +213,87 @@ def phase_kernels(genome: str, reads):
         f"plain {plain:.4f} ms; in range {int((ref != 255).sum())}")
     records["verify_nm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
     records.update(search_kernels(idx8, reads[:BATCH], put))
-    return records
+    locv = locv_kernel(genome, sa1_dir, put, rng, records)
+    records["row_gather_sum"] = gather_kernel(put(locv), latk, rng)
+    return records, sa1_dir
+
+
+def locv_kernel(genome: str, sa1_dir: str, put, rng, records):
+    """verify_locv against its plain version at the locv table of the
+    sa_rate 1 index in `sa1_dir`, 65,536 candidates of 100 bp reads: a
+    third at the true start of their read, the rest at random rows; some
+    seed offsets past the read, invalid lanes. Returns the host table
+    (row_gather_sum's)."""
+    import numpy as np
+    import torch
+
+    from bwtpu import dna
+    from bwtpu.index import load_index
+    from bwtpu.simulate import simulate_reads
+    from bwtpu_torch.kernels.verify2 import (build_locv_rows, pack_reads, verify_locv,
+                                             verify_locv_plain)
+
+    L = 100
+    idx = load_index(sa1_dir)[0][0]
+    locv = build_locv_rows(idx.text_packed, idx.ssa, L)
+    reads, truth = simulate_reads(genome, LANES, read_len=L, max_mismatches=2,
+                                  n_frac=0.01, seed=SEED + 6)
+    c, m = dna.encode_with_mask("".join(r.seq for r in reads))
+    codes, amb = c.reshape(LANES, L).astype(np.int32), m.reshape(LANES, L).astype(np.int32)
+    rev = np.array([t["strand"] == "-" for t in truth])
+    codes[rev] = 3 - codes[rev, ::-1]  # the strand that matches the text
+    amb[rev] = amb[rev, ::-1]
+    rw, ab, lm = pack_reads(codes, amb, np.full(LANES, L, np.int32))
+    rank = np.empty(idx.n, np.int64)
+    rank[idx.ssa] = np.arange(idx.n)
+    off = rng.integers(0, L, size=LANES).astype(np.int32)
+    start = np.array([t["pos"] for t in truth]) + off
+    rows = rank[np.minimum(start, idx.text_len)].astype(np.int32)
+    rows[1::3] = rng.integers(0, idx.n, size=len(rows[1::3]))
+    off[2::11] = rng.integers(-30, 130, size=len(off[2::11]))
+    valid = rng.random(LANES) < 0.9
+    args = (put(locv), idx.text_len, put(rows), put(valid), put(off), put(rw), put(ab),
+            put(lm), put(np.full(LANES, L, np.int32)))
+    got, want = verify_locv(*args), verify_locv_plain(*args)
+    torch.cuda.synchronize()
+    err = max(int((a - b).abs().max()) for a, b in zip(got, want))
+    require(err == 0, f"verify_locv != plain: max |diff| {err}")
+    n_hit = int((want[1] <= 2).sum())
+    require(n_hit > LANES // 4, f"verify_locv: only {n_hit} candidates with nm <= 2")
+    ms = cuda_ms(lambda: verify_locv(*args))
+    plain = cuda_ms(lambda: verify_locv_plain(*args))
+    say(f"  verify_locv  L {L}, locv table {tuple(locv.shape)} ({locv.nbytes / 1e6:.1f} MB), "
+        f"{LANES} candidates: equal; kernel {ms:.4f} ms, plain {plain:.4f} ms; "
+        f"nm <= 2: {n_hit}")
+    records["verify_locv"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    return locv
+
+
+def gather_kernel(locv, latk, rng):
+    """row_gather_sum against its plain version, 2^20 random indices each:
+    the locv table (Wr 16, the record kept) and the multi-step lattice
+    (Wr 128, 9.3 MB)."""
+    import torch
+
+    from bwtpu_torch.kernels.gather import row_gather_sum, row_gather_sum_plain
+
+    rec = None
+    for table in (locv, latk):
+        idx = torch.from_numpy(rng.integers(0, table.shape[0], size=GATHER_IDX)
+                               .astype("int32")).cuda()
+        got, want = row_gather_sum(table, idx), row_gather_sum_plain(table, idx)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        require(err == 0 and bool(want[0].any()),
+                f"row_gather_sum != plain (Wr {table.shape[1]}): max |diff| {err}")
+        ms = cuda_ms(lambda: row_gather_sum(table, idx))
+        plain = cuda_ms(lambda: row_gather_sum_plain(table, idx), reps=5)
+        say(f"  row_gather_sum {GATHER_IDX} rows of Wr {table.shape[1]} from "
+            f"{table.numel() * 4 / 1e6:.1f} MB: equal; kernel {ms:.4f} ms "
+            f"({ms * 1e6 / GATHER_IDX:.3f} ns/row), plain {plain:.4f} ms "
+            f"({plain * 1e6 / GATHER_IDX:.3f} ns/row)")
+        rec = rec or dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    return rec
 
 
 def search_kernels(idx, batch, put):
@@ -297,13 +407,13 @@ def brute_force(g_t, patterns, masks, k: int):
     return torch.cat(out).numpy()
 
 
-def phase_main(tmp: str, genome: str):
+def phase_main(tmp: str, genome: str, fa: str):
     import numpy as np
     import torch
 
     from bwtpu import dna, sais
     from bwtpu.index import load_index
-    from bwtpu.io import write_fasta, write_fastq
+    from bwtpu.io import write_fastq
     from bwtpu.readblock import read_fastq_stream
     from bwtpu.results import ContigTable, select_primary_flat
     from bwtpu.sam import sam_header
@@ -312,8 +422,7 @@ def phase_main(tmp: str, genome: str):
     from bwtpu_torch.engine import Engine
 
     say(f"[5] slice 1's path at E. coli scale ({len(genome)} bp, {N_READS} reads x 100 bp)")
-    fa, idx_dir, fq = (os.path.join(tmp, x) for x in ("ecoli.fa", "ecoli_idx", "reads.fq"))
-    write_fasta(fa, [("ecoli_sim", genome)])
+    idx_dir, fq = (os.path.join(tmp, x) for x in ("ecoli_idx", "reads.fq"))
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as built:
         run_cli(["build-index", fa, idx_dir])  # CLI defaults: sa_rate 8, L 100
@@ -338,6 +447,8 @@ def phase_main(tmp: str, genome: str):
     t_nm = np.array([t["nm"] for t in truth], np.int64)
     ctable = ContigTable.build(manifest.contigs)
     stats = {}
+    ctx = dict(fq=fq, reads=reads, g_t=g_t, sample=sample, t_pos=t_pos,
+               t_rev=t_rev, t_nm=t_nm, sam={}, keys={}, bf={})
 
     for k in (0, 2):
         # engine pass over the same FASTQ: hit sets for the checks
@@ -367,6 +478,9 @@ def phase_main(tmp: str, genome: str):
                              f"{len(want)} reads")
 
         bf_set = brute_force_sample(g_t, reads, sample, k)
+        ctx["bf"][k], ctx["keys"][k] = bf_set, np.sort(have)
+        if k == 0:
+            ctx["k0_reads"] = np.unique(ridx)
         in_sample = np.isin(ridx, sample)
         eng_set = {(int(r), int(p), int(s), int(m)) for r, p, s, m in
                    zip(ridx[in_sample], pos[in_sample], rev[in_sample], nm[in_sample])}
@@ -389,6 +503,7 @@ def phase_main(tmp: str, genome: str):
         require(summary["reads"] == N_READS, f"k={k}: CLI aligned {summary['reads']} reads")
         require(summary["truncated_reads"] == 0 and b"xo:i:1" not in sam_bytes,
                 f"k={k}: truncated reads")
+        ctx["sam"][k] = sam_bytes
         say(f"  k={k}: truth {len(want)}/{len(want)} recovered; brute force equal on "
             f"{N_SAMPLED} reads ({len(bf_set)} hits); hits {len(have)}; "
             f"engine pass {N_READS / eng_s:.1f} reads/s ({eng_s:.3f} s); CLI FASTQ->SAM "
@@ -396,7 +511,7 @@ def phase_main(tmp: str, genome: str):
             f"{summary['heals']}, overflow_reads {summary['overflow_reads']}, "
             f"compact_overflows {summary['compact_overflows']}; launches {launches}")
         stats[k] = launches
-    return idx_dir, {name: sum(s[name] for s in stats.values()) for name in stats[0]}
+    return idx_dir, {name: sum(s[name] for s in stats.values()) for name in stats[0]}, ctx
 
 
 def phase_read_list(tmp: str, genome: str, idx_dir: str, reads, truth):
@@ -462,21 +577,173 @@ def phase_read_list(tmp: str, genome: str, idx_dir: str, reads, truth):
     return {name: sum(s[name] for s in stats.values()) for name in stats[0]}
 
 
-KERNELS = {  # name: (source, TPU kernel it replaces)
+def phase_locv(tmp: str, p5: dict, idx_dir: str):
+    """bench.py's single-end configuration (sa_rate 1 index in `idx_dir`,
+    the locv table on, autotuned caps, tiered k = 2) through the port CLI,
+    each run beside an engine pass that mirrors it; returns the launches
+    of the CLI runs."""
+    import numpy as np
+    import torch
+
+    from bwtpu.index import load_index
+    from bwtpu.readblock import read_fastq_stream
+    from bwtpu.results import ContigTable, select_primary_flat
+    from bwtpu.sam import sam_header
+    from bwtpu.samfast import emit_single
+    from bwtpu_torch.engine import Engine
+
+    say(f"[7] bench.py's single-end configuration: sa_rate 1 (locv), autotuned caps, "
+        f"tiered k = 2 ({N_READS} reads x 100 bp)")
+    shards, manifest = load_index(idx_dir)
+    cfg = shards[0].config
+    t0 = time.perf_counter()
+    sh = Engine(shards, device="cuda").shard
+    up_s = time.perf_counter() - t0
+    sizes = {name: getattr(sh, name).numel() * 4 / 1e6
+             for name in ("lattice", "latk", "ssa", "text_rows", "locv")}
+    sizes.update({f"kmer_d{d}": t.numel() * 4 / 1e6 for d, t in sh.kmer_tables.items()})
+    require(tuple(sh.locv.shape) == (sh.n, 16), f"locv table not on: {tuple(sh.locv.shape)}")
+    say(f"  resident tables (MB): " + ", ".join(f"{n} {v:.1f}" for n, v in sizes.items())
+        + f"; total {sum(sizes.values()):.1f}; Engine() with the locv build and upload "
+        f"{up_s:.1f} s")
+    del sh
+    ctable = ContigTable.build(manifest.contigs)
+    reads, sample, g_t = p5["reads"], p5["sample"], p5["g_t"]
+    t_pos, t_rev, t_nm = p5["t_pos"], p5["t_rev"], p5["t_nm"]
+    stats = {}
+    for name, k, tiered in (("k=0", 0, False), ("k=2", 2, False), ("tiered k=2", 2, True)):
+        eng = Engine(shards, device="cuda")
+        _, _, stream = read_fastq_stream(p5["fq"], BATCH)
+        parts, sam_parts = [], [sam_header(manifest.contigs).encode()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        base, tune_s = 0, 0.0
+        for blk in stream:
+            if base == 0:
+                lf = eng.autotune_caps(blk, k, pad_to=BATCH)
+                tune_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                tuned = (lf, eng._hf(k), dict(eng.stats.__dict__))
+            flat = eng.finish_block(eng.dispatch_block(blk, k, pad_to=BATCH, tiered=tiered))
+            require(flat.truncated is None, f"{name}: truncated reads in the engine pass")
+            parts.append((flat.read_idx.astype(np.int64) + base, flat.pos,
+                          flat.strand_rev.astype(np.int64), flat.nm.astype(np.int64)))
+            sam_parts.append(emit_single(blk, select_primary_flat(flat), ctable,
+                                         truncated=flat.truncated))
+            base += blk.n
+        eng_s = time.perf_counter() - t0
+        ridx, pos, rev, nm = (np.concatenate(c) for c in zip(*parts))
+        have = ((ridx * 4 + nm) << 34) | (pos << 1) | rev
+        st = {key: v - tuned[2][key] for key, v in eng.stats.__dict__.items()}
+
+        sam = os.path.join(tmp, f"sa1_{name.replace(' ', '_')}.sam")
+        reset_launches()
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            summary = run_cli(["align", idx_dir, p5["fq"], "-o", sam, "-k", str(k),
+                               "--batch-size", str(BATCH), "--device", "cuda",
+                               "--autotune-caps"] + (["--tiered"] if tiered else []))
+        launches = read_launches()
+        sys.stderr.write(err.getvalue())
+        events = [json.loads(ln) for ln in err.getvalue().splitlines()
+                  if ln.startswith("{") and '"autotune"' in ln]
+        require(len(events) == 1, f"{name}: {len(events)} autotune events")
+        ev = events[0]
+        require(ev["loc_factor"] <= cfg.loc_factor and (ev["loc_factor"], ev["hit_factor"])
+                == tuned[:2], f"{name}: autotune event {ev} (engine pass {tuned[:2]}, "
+                f"ceiling {cfg.loc_factor})")
+        with open(sam, "rb") as f:
+            sam_bytes = f.read()
+        require(sam_bytes == b"".join(sam_parts), f"{name}: CLI SAM differs from the engine pass")
+        require(summary["reads"] == N_READS and summary["truncated_reads"] == 0
+                and b"xo:i:1" not in sam_bytes, f"{name}: {summary}")
+        need, never = ("verify_locv", "search_chain2"), ("locate_walk", "verify_nm")
+        require(all(launches[n] > 0 for n in need) and not any(launches[n] for n in never),
+                f"{name}: launches {launches}")
+        if not tiered:
+            # the sa_rate changes how a position is found, not which
+            require(sam_bytes == p5["sam"][k], f"{name}: SAM differs from phase 5's")
+            require(np.array_equal(np.sort(have), p5["keys"][k]),
+                    f"{name}: hit set differs from phase 5's")
+            check = f"SAM byte-equal to phase 5's, {len(have)} hits equal"
+        else:
+            # stratum contract on the sampled reads, against brute force
+            eng_set: dict = {int(i): set() for i in sample}
+            in_sample = np.isin(ridx, sample)
+            for r, p, s_, m in zip(ridx[in_sample], pos[in_sample], rev[in_sample],
+                                   nm[in_sample]):
+                eng_set[int(r)].add((int(p), int(s_), int(m)))
+            bf = {kk: {int(i): set() for i in sample} for kk in (0, 2)}
+            for kk in (0, 2):
+                for r, p, s_, m in p5["bf"][kk]:
+                    bf[kk][r].add((p, s_, m))
+            n_esc = 0
+            for i in sample:
+                hs, b0, b2 = eng_set[int(i)], bf[0][int(i)], bf[2][int(i)]
+                require({h for h in hs if h[2] == 0} == b0 and hs <= b2
+                        and (b0 or hs == b2), f"{name}: read {i} breaks the stratum "
+                        f"contract: {sorted(hs)} vs k=0 {sorted(b0)}, k=2 {sorted(b2)}")
+                n_esc += not b0
+            # truth: nm 0 always; nm <= 2 where phase 5's k = 0 pass found nothing
+            want_rows = np.flatnonzero((t_nm == 0) | (
+                (t_nm <= 2) & ~np.isin(np.arange(N_READS), p5["k0_reads"])))
+            want = ((want_rows * 4 + t_nm[want_rows]) << 34) | (t_pos[want_rows] << 1) \
+                | t_rev[want_rows].astype(np.int64)
+            found = np.isin(want, have)
+            require(found.all(), f"{name}: truth missing for {int((~found).sum())} of "
+                                 f"{len(want)} reads")
+            check = (f"stratum contract on {N_SAMPLED} sampled reads ({n_esc} with no "
+                     f"exact hit); truth {len(want)}/{len(want)}; {len(have)} hits")
+        say(f"  {name}: autotune loc_factor {ev['loc_factor']}, hit_factor "
+            f"{ev['hit_factor']} (probe {tune_s:.3f} s); {check}; engine pass "
+            f"{N_READS / eng_s:.1f} reads/s ({eng_s:.3f} s, heals {st['heals']}, "
+            f"escalated {st['escalated']}); CLI FASTQ->SAM {summary['reads_per_s']} "
+            f"reads/s ({summary['wall_s']} s, heals {summary['heals']}, escalated "
+            f"{summary['escalated']}); launches {launches}")
+        stats[name] = launches
+    return {n: sum(s[n] for s in stats.values()) for n in stats["k=0"]}
+
+
+def phase_gather_ab():
+    """The row gather's A/B entry point (scripts/torch_gather_ab.py) at a
+    locv row's width and the text-row table's size (2.3 MB); returns the
+    launches of that run."""
+    import importlib.util
+
+    say("[8] scripts/torch_gather_ab.py --width 16 --sizes-mb 2.3")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_gather_ab.py")
+    spec = importlib.util.spec_from_file_location("torch_gather_ab", path)
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    reset_launches()
+    rc = ab.main(["--width", "16", "--sizes-mb", "2.3", "--reps", "5"])
+    launches = read_launches()
+    require(rc == 0 and launches["row_gather_sum"] > 0,
+            f"torch_gather_ab: rc {rc}, launches {launches}")
+    return launches
+
+
+KERNELS = {  # name: (source, TPU kernel (or jnp code) it replaces)
     "locate_walk": ("bwtpu_torch/csrc/locate.cu", "bwtpu/kernels/pallas_step.py:256"),
     "verify_nm": ("bwtpu_torch/csrc/verify.cu", "bwtpu/kernels/pallas_step.py:302"),
     "search_chain1": ("bwtpu_torch/csrc/search1.cu", "bwtpu/kernels/pallas_step.py:179"),
     "search_chain2": ("bwtpu_torch/csrc/search2.cu", "bwtpu/kernels/pallas_step.py:115"),
+    "verify_locv": ("bwtpu_torch/csrc/verify.cu",
+                    "bwtpu/kernels/verify2.py:129, bwtpu/engine.py:548"),
+    "row_gather_sum": ("bwtpu_torch/csrc/gather.cu", "scripts/pallas_gather_ab.py:37"),
 }
 
 
 def _wrappers():
+    from bwtpu_torch.kernels.gather import row_gather_sum
     from bwtpu_torch.kernels.locate import locate_walk
     from bwtpu_torch.kernels.search2 import search_chain1, search_chain2
-    from bwtpu_torch.kernels.verify2 import verify_nm
+    from bwtpu_torch.kernels.verify2 import verify_locv, verify_nm
 
     return {"locate_walk": locate_walk, "verify_nm": verify_nm,
-            "search_chain1": search_chain1, "search_chain2": search_chain2}
+            "search_chain1": search_chain1, "search_chain2": search_chain2,
+            "verify_locv": verify_locv, "row_gather_sum": row_gather_sum}
 
 
 def reset_launches() -> None:
@@ -556,6 +823,7 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     import bwtpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from bwtpu.io import write_fasta
 
     t_all = time.perf_counter()
     name, smi = phase_card()
@@ -564,16 +832,23 @@ def main() -> int:
     t0 = time.perf_counter()
     list_reads, list_truth = read_list_reads(genome)
     say(f"  simulated the Read-list reads: {time.perf_counter() - t0:.1f} s")
-    records = phase_kernels(genome, list_reads)
     with tempfile.TemporaryDirectory(prefix="bwtpu_torch_smoke_") as tmp:
+        fa = os.path.join(tmp, "ecoli.fa")
+        write_fasta(fa, [("ecoli_sim", genome)])
+        records, sa1_dir = phase_kernels(tmp, genome, fa, list_reads)
         phase_phix(tmp, root)
-        idx_dir, launches = phase_main(tmp, genome)
+        idx_dir, launches, p5 = phase_main(tmp, genome, fa)
         list_launches = phase_read_list(tmp, genome, idx_dir, list_reads, list_truth)
-    say(f"  launches on slice 1's path {launches}; on the Read-list path {list_launches}")
-    say(f"[7] all phases passed in {time.perf_counter() - t_all:.1f} s on {smi}")
+        locv_launches = phase_locv(tmp, p5, sa1_dir)
+    ab_launches = phase_gather_ab()
+    paths = {"slice 1's path": launches, "the Read-list path": list_launches,
+             "the sa_rate 1 path": locv_launches, "the gather A/B": ab_launches}
+    for what, counts in paths.items():
+        say(f"  launches on {what}: {counts}")
+    say(f"[9] all phases passed in {time.perf_counter() - t_all:.1f} s on {smi}")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k] + list_launches[k], **records[k]}
+         "launches": sum(c[k] for c in paths.values()), **records[k]}
         for k, (src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -26,13 +26,21 @@ upload, 1-step search incl. its fixup, compaction, locate_walk,
 verify_nm, scatter back, fetch, host assembly), then the SAM text of the same batches
 timed alone. One JSON line per k, "path": "read_list".
 
+Then bench.py's single-end configuration: `build-index --sa-rate 1`
+(otherwise the CLI defaults), the block passes above after
+Engine.autotune_caps on the warm-up block, at k = 0, k = 2 and tiered
+k = 2, each with the fused locate+verify table on (verify_locv) and off
+(ssa gather + verify_nm, upload_index(locv=False)). One JSON line per
+run, "path": "sa_rate1".
+
 Needs a CUDA card; there is no fallback.
 
-Run:  python scripts/torch_stage_profile.py
+Run:  python scripts/torch_stage_profile.py [--paths block read_list sa_rate1]
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
 import io
@@ -101,6 +109,7 @@ def _stage_hooks(totals, counts):
                     (engine, "compact_counts", "compaction"),
                     (engine, "locate_walk", "locate_walk"),
                     (engine, "verify_nm", "verify_nm"),
+                    (engine, "verify_locv", "verify_locv"),
                     (engine, "compact", "hit compaction")], timed)
     saved.append((engine.Engine, "finish_block", finish))
     engine.Engine.finish_block = finish_outer
@@ -188,20 +197,96 @@ def _busy_us(events) -> float:
     return busy
 
 
-def main() -> int:
+def _block_passes(eng, blocks, k, smi, tiered=False, **tags):
+    """The block path's three passes over blocks[1:] (blocks[0] has
+    warmed up eng); prints one JSON line."""
     import torch
-
-    if not torch.cuda.is_available():
-        print("torch_stage_profile: no CUDA device", file=sys.stderr)
-        return 2
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    B = BATCH
+
+    def run_pass():
+        heals, esc = eng.stats.heals, eng.stats.escalated
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for blk in blocks[1:]:
+            eng.finish_block(eng.dispatch_block(blk, k, pad_to=B, tiered=tiered))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, eng.stats.heals - heals,
+                eng.stats.escalated - esc)
+
+    wall_s, heals, escalated = run_pass()
+
+    totals, counts = collections.defaultdict(float), collections.Counter()
+    saved = _stage_hooks(totals, counts)
+    try:
+        stage_wall_s, *_ = run_pass()
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        window_s, *_ = run_pass()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    busy_us = _busy_us(dev)
+    print(json.dumps({
+        **tags, "k": k, "tiered": tiered, "blocks": BLOCKS, "batch": B, "card": smi,
+        "wall_ms": wall_s * 1e3, "heals": heals, "escalated": escalated,
+        "reads_per_s": BLOCKS * B / wall_s,
+        "stage_pass_ms": stage_wall_s * 1e3,
+        "stages_ms": {n: totals[n] * 1e3 for n in sorted(totals, key=totals.get,
+                                                         reverse=True)},
+        "stage_calls": dict(counts),
+        "profiled_window_ms": window_s * 1e3,
+        "device_events": len(dev), "kernels": len(kernels),
+        "kernel_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "busy_share_of_window": busy_us / 1e6 / window_s,
+    }), flush=True)
+
+
+def _build_index(fa, idx, *flags):
+    """`python -m bwtpu_torch.cli build-index` with its output swallowed;
+    returns (shards, manifest)."""
     from bwtpu.index import load_index
+    from bwtpu_torch import cli as tcli
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        tcli.main(["build-index", fa, idx, *flags])
+    return load_index(idx)
+
+
+def _sa_rate1(shards, blocks, smi):
+    """bench.py's configuration: autotuned caps, k = 0, k = 2 and tiered
+    k = 2, the locv table on and off."""
+    from bwtpu_torch.engine import Engine, upload_index
+
+    for k, tiered in ((0, False), (2, False), (2, True)):
+        for locv in (True, False):
+            eng = Engine(shards, device="cuda")
+            if not locv:
+                eng.shard = upload_index(shards, eng.device, locv=False)
+            lf = eng.autotune_caps(blocks[0], k, pad_to=BATCH)  # also the warm-up
+            _block_passes(eng, blocks, k, smi, tiered=tiered, path="sa_rate1",
+                          locv=locv, loc_factor=lf, hit_factor=eng._hf(k))
+
+
+def main(argv=None) -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--paths", nargs="*", default=["block", "read_list", "sa_rate1"],
+                    choices=["block", "read_list", "sa_rate1"])
+    paths = ap.parse_args(argv).paths
+    if not torch.cuda.is_available():
+        print("torch_stage_profile: no CUDA device", file=sys.stderr)
+        return 2
+
     from bwtpu.io import write_fasta
     from bwtpu.readblock import ReadBlock
     from bwtpu.simulate import ECOLI_SCALE, random_genome, simulate_reads
-    from bwtpu_torch import cli as tcli
     from bwtpu_torch.engine import Engine
 
     smi = subprocess.run(
@@ -209,60 +294,27 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     genome = random_genome(ECOLI_SCALE, seed=SEED)
-    with tempfile.TemporaryDirectory(prefix="bwtpu_torch_prof_") as tmp:
-        fa, idx = os.path.join(tmp, "g.fa"), os.path.join(tmp, "idx")
-        write_fasta(fa, [("ecoli_sim", genome)])
-        with contextlib.redirect_stdout(io.StringIO()):
-            tcli.main(["build-index", fa, idx])  # CLI defaults
-        shards, manifest = load_index(idx)
     B = BATCH
     reads, _ = simulate_reads(genome, (BLOCKS + 1) * B, read_len=100,
                               max_mismatches=2, seed=SEED + 1)
     blocks = [ReadBlock.from_reads(reads[i:i + B]) for i in range(0, len(reads), B)]
+    with tempfile.TemporaryDirectory(prefix="bwtpu_torch_prof_") as tmp:
+        fa = os.path.join(tmp, "g.fa")
+        write_fasta(fa, [("ecoli_sim", genome)])
+        if "block" in paths or "read_list" in paths:
+            shards, manifest = _build_index(fa, os.path.join(tmp, "idx"))  # CLI defaults
+        if "sa_rate1" in paths:
+            shards1, _ = _build_index(fa, os.path.join(tmp, "idx1"), "--sa-rate", "1")
 
-    for k in (0, 2):
-        eng = Engine(shards, device="cuda")
-        eng.finish_block(eng.dispatch_block(blocks[0], k, pad_to=B))  # warm-up
-
-        def run_pass():
-            heals = eng.stats.heals
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for blk in blocks[1:]:
-                eng.finish_block(eng.dispatch_block(blk, k, pad_to=B))
-            torch.cuda.synchronize()
-            return time.perf_counter() - t0, eng.stats.heals - heals
-
-        wall_s, heals = run_pass()
-
-        totals, counts = collections.defaultdict(float), collections.Counter()
-        saved = _stage_hooks(totals, counts)
-        try:
-            stage_wall_s, _ = run_pass()
-        finally:
-            for mod, attr, fn in saved:
-                setattr(mod, attr, fn)
-
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            window_s, _ = run_pass()
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
-        busy_us = _busy_us(dev)
-        print(json.dumps({
-            "k": k, "blocks": BLOCKS, "batch": B, "card": smi,
-            "wall_ms": wall_s * 1e3, "heals": heals,
-            "reads_per_s": BLOCKS * B / wall_s,
-            "stage_pass_ms": stage_wall_s * 1e3,
-            "stages_ms": {n: totals[n] * 1e3 for n in sorted(totals, key=totals.get,
-                                                             reverse=True)},
-            "stage_calls": dict(counts),
-            "profiled_window_ms": window_s * 1e3,
-            "device_events": len(dev), "kernels": len(kernels),
-            "kernel_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
-            "device_busy_ms": busy_us / 1e3,
-            "busy_share_of_window": busy_us / 1e6 / window_s,
-        }), flush=True)
-    _read_list(genome, shards, manifest.contigs, smi)
+    if "block" in paths:
+        for k in (0, 2):
+            eng = Engine(shards, device="cuda")
+            eng.finish_block(eng.dispatch_block(blocks[0], k, pad_to=B))  # warm-up
+            _block_passes(eng, blocks, k, smi)
+    if "read_list" in paths:
+        _read_list(genome, shards, manifest.contigs, smi)
+    if "sa_rate1" in paths:
+        _sa_rate1(shards1, blocks, smi)
     return 0
 
 

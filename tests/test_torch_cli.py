@@ -102,7 +102,8 @@ def test_resume_and_uncovered_options(tmp_path):
     (tmp_path / "out.sam.cursor").write_text('{"next_batch": 2}')
     tcli.main(base + ["--resume"])
     assert out.read_bytes() == full
-    for flag, slice_no in ((["--tiered"], 4), (["--autotune-caps"], 4),
-                           (["--rescore"], 7), (["--paired", str(fq)], 7)):
+    # --tiered, --esc-factor and --autotune-caps are covered now
+    # (tests/test_torch_tiered.py)
+    for flag, slice_no in ((["--rescore"], 7), (["--paired", str(fq)], 7)):
         with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
             tcli.main(base + flag)

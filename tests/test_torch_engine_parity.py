@@ -95,16 +95,16 @@ def test_truncation_marks_match_bwtpu():
 
 def test_engine_refuses_uncovered_options():
     """What the port still refuses: block reads longer than read_len
-    (as bwtpu does), sa_rate == 1 (slice 2) and several shards (slice
-    5). Patterns shorter than every k-mer table are covered now
-    (tests/test_torch_batch_parity.py)."""
+    (as bwtpu does) and several shards (slice 5). Patterns shorter than
+    every k-mer table (tests/test_torch_batch_parity.py) and sa_rate == 1
+    (tests/test_torch_locv.py) are covered now."""
     g = random_genome(3000, seed=4)
     idx = build_fm_index(g, EngineConfig(sa_rate=4, read_len=40))
     long, _ = simulate_reads(g, 4, read_len=41)
     et = te.Engine([idx], device="cpu")
     with pytest.raises(ValueError, match="not in"):
         et.dispatch_block(ReadBlock.from_reads(long), 2)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        te.Engine([build_fm_index(g, EngineConfig(sa_rate=1))], device="cpu")
+    e1 = te.Engine([build_fm_index(g, EngineConfig(sa_rate=1))], device="cpu")
+    assert e1.shard.locv.shape[-1] > 1
     with pytest.raises(NotImplementedError, match="slice 5"):
         te.Engine([idx, idx], device="cpu")

@@ -152,3 +152,66 @@ def test_search_chain2_kernel_matches_plain(cuda, d):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_verify_locv_kernel_matches_plain(cuda):
+    """sa_rate 1: rows of the locv table, candidates at true starts, at
+    random seed offsets, before the text start and past its end, invalid
+    lanes, reads with N bases and some shorter than L."""
+    from bwtpu_torch.kernels.verify2 import build_locv_rows, verify_locv, verify_locv_plain
+
+    idx = build_fm_index(GENOME, EngineConfig(sa_rate=1))
+    reads, truth = simulate_reads(GENOME, 4000, read_len=L, max_mismatches=2,
+                                  n_frac=0.01, seed=5)
+    codes = np.zeros((len(reads), L), np.int32)
+    amb = np.zeros((len(reads), L), np.int32)
+    for i, r in enumerate(reads):
+        c, m = dna.encode_with_mask(r.seq)
+        codes[i], amb[i] = dna.revcomp_codes(c, m) if truth[i]["strand"] == "-" else (c, m)
+    rng = np.random.default_rng(6)
+    lens = np.full(len(reads), L, np.int32)
+    lens[::5] = rng.integers(30, L, size=len(lens[::5]))
+    rw, ab, lm = pack_reads(codes, amb, lens)
+    # rows whose SA value is each read's true start + a seed offset
+    rank = np.empty(idx.n, np.int64)
+    rank[idx.ssa] = np.arange(idx.n)
+    off = rng.integers(0, L, size=len(reads)).astype(np.int32)
+    start = np.array([t["pos"] for t in truth]) + off
+    rows = rank[np.minimum(start, idx.text_len)].astype(np.int32)
+    rows[1::3] = rng.integers(0, idx.n, size=len(rows[1::3]))
+    rows[:3] = [idx.dollar_row, 0, idx.n - 1]
+    off[2::7] = rng.integers(-20, 120, size=len(off[2::7]))
+    valid = rng.random(len(rows)) < 0.9
+    args = [_t(build_locv_rows(idx.text_packed, idx.ssa, L), cuda), idx.text_len]
+    args += [_t(a, cuda) for a in (rows, valid, off, rw, ab, lm, lens)]
+    got = verify_locv(*args)
+    want = verify_locv_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (want[1] == 255).any() and (want[1] <= 2).sum() > 1000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Wr,unaligned", [(16, False), (128, False), (9, False),
+                                          (16, True), (300, False)])
+@pytest.mark.parametrize("inflight", [4, 8, 16])
+def test_row_gather_sum_kernel_matches_plain(cuda, Wr, unaligned, inflight):
+    """16 B loads (Wr % 4 == 0 on an aligned table), 4 B loads otherwise,
+    several column chunks (Wr 300), a tail past the last block of G,
+    values that wrap int32."""
+    from bwtpu_torch.kernels.gather import row_gather_sum, row_gather_sum_plain
+
+    rng = np.random.default_rng(Wr + inflight)
+    N = 5000
+    base = torch.from_numpy(rng.integers(-2**31, 2**31, size=N * Wr + 1,
+                                         dtype=np.int64).astype(np.int32)).to(cuda)
+    table = (base[1:] if unaligned else base[:-1]).view(N, Wr)
+    assert (table.data_ptr() % 16 != 0) == unaligned
+    idx = _t(rng.integers(0, N, size=3 * 1024 + 77).astype(np.int32), cuda)
+    for G in (1024, 100):
+        got = row_gather_sum(table, idx, G, inflight)
+        want = row_gather_sum_plain(table, idx, G)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)

@@ -27,6 +27,43 @@ def test_constants_equal():
     assert tverify2.TEXT_ROW_STRIDE == jverify2.TEXT_ROW_STRIDE
     for L in range(1, 260):
         assert tverify2.window_row_width(L) == jverify2.window_row_width(L)
+        assert tverify2.locv_row_width(L) == jverify2.locv_row_width(L)
+    assert te.LOCV_MAX_BYTES == je.LOCV_MAX_BYTES
+    assert te.Engine.LF_LADDER == je.Engine.LF_LADDER
+
+
+@pytest.mark.parametrize("read_len", [36, 50, 100, 150])
+def test_build_locv_rows_equal(read_len):
+    rng = np.random.default_rng(read_len)
+    for n_words in (1, 7, 300, 1003):
+        text = rng.integers(-2**31, 2**31, size=n_words, dtype=np.int64).astype(np.int32)
+        n = 16 * n_words
+        ssa = rng.integers(0, n + 1, size=n).astype(np.int32)
+        ssa[:2] = [0, n]
+        got = tverify2.build_locv_rows(text, ssa, read_len)
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, jverify2.build_locv_rows(text, ssa, read_len))
+
+
+def test_tiered_to_columns_equal():
+    """Random tiered outputs, duplicated (row, pos) pairs across both
+    tiers included: the same deduped columns and counts."""
+    rng = np.random.default_rng(8)
+    B, k, mh, mc = 50, 2, 4, 8
+    esc_cap, cap1, cap2 = 30, 200, 400
+    cand1 = rng.integers(-3, 400, size=cap1).astype(np.int32)
+    cand2 = np.concatenate([cand1[:100], rng.integers(-3, 400, size=cap2 - 100)]).astype(np.int32)
+    out = (cand1, rng.integers(0, 4, size=cap1).astype(np.int32),
+           rng.integers(0, 2 * B * mh, size=cap1).astype(np.int32), np.int32(150),
+           cand2, rng.integers(0, 5, size=cap2).astype(np.int32),
+           rng.integers(0, 2 * esc_cap * (k + 1) * mc, size=cap2).astype(np.int32),
+           np.int32(333), rng.permutation(B)[:esc_cap].astype(np.int32), np.int32(21),
+           rng.integers(0, 2, size=2 * B).astype(np.int32), np.int32(3))
+    got, want = te.tiered_to_columns(out, mh, mc, k, B), je.tiered_to_columns(out, mh, mc, k, B)
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert got[3:] == want[3:]
 
 
 @pytest.mark.parametrize("read_len", [36, 50, 100, 150])
@@ -129,13 +166,13 @@ def test_compact_to_columns_equal():
         np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("sa_rate", [4, 8])
+@pytest.mark.parametrize("sa_rate", [1, 4, 8])
 def test_shard_equal_to_bwtpu_upload(sa_rate):
     idx = build_fm_index(random_genome(5000, seed=sa_rate),
                          EngineConfig(sa_rate=sa_rate, read_len=60))
     ref = jax.tree.map(lambda x: x[0], je.upload_index([idx]).shard)
     got = te.upload_index([idx], torch.device("cpu"))
-    for name in ("lattice", "latk", "latk_inv", "ssa", "C", "text_rows"):
+    for name in ("lattice", "latk", "latk_inv", "ssa", "C", "text_rows", "locv"):
         want = np.asarray(getattr(ref, name))
         have = getattr(got, name).numpy()
         assert have.dtype == want.dtype, name
@@ -148,12 +185,15 @@ def test_shard_equal_to_bwtpu_upload(sa_rate):
 
 
 def test_upload_refuses_uncovered_indexes():
-    """sa_rate == 1 (slice 2) and several shards (slice 5) are refused; an
-    index without the multi-step lattice uploads with bwtpu's (1, 1)
-    dummy, which sends the pipelines to the 1-step path."""
+    """Several shards (slice 5) are refused; an sa_rate == 1 index uploads
+    with bwtpu's locv table; an index without the multi-step lattice
+    uploads with bwtpu's (1, 1) dummy, which sends the pipelines to the
+    1-step path."""
     g = random_genome(3000, seed=1)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        te.upload_index([build_fm_index(g, EngineConfig(sa_rate=1))], "cpu")
+    idx1 = build_fm_index(g, EngineConfig(sa_rate=1))
+    np.testing.assert_array_equal(
+        te.upload_index([idx1], "cpu").locv.numpy(),
+        np.asarray(jax.tree.map(lambda x: x[0], je.upload_index([idx1]).shard).locv))
     idx0 = build_fm_index(g, EngineConfig(sa_rate=4, occ_step=0))
     got = te.upload_index([idx0], "cpu")
     ref = jax.tree.map(lambda x: x[0], je.upload_index([idx0]).shard)

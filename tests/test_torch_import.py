@@ -11,7 +11,7 @@ def test_port_imports_without_jax_or_nvcc():
     code = (
         "import sys\n"
         "import bwtpu_torch, bwtpu_torch.engine, bwtpu_torch.cli\n"
-        "from bwtpu_torch.kernels import (common, compact, locate, prep,\n"
+        "from bwtpu_torch.kernels import (common, compact, gather, locate, prep,\n"
         "    search, search2, searchk, verify, verify2, _build)\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert not _build._libs, 'a kernel was built at import'\n"

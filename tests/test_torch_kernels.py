@@ -146,5 +146,13 @@ def test_wrappers_take_the_plain_version_on_cpu(indexes):
     before = verify_nm.launches
     np.testing.assert_array_equal(verify_nm(*args).numpy(), verify_packed(*args).numpy())
     assert verify_nm.launches == before
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        locate_walk(*_locate_args(idx), _t(rows), _t(valid), 1)
+    # sa_rate 1: one ssa gather on any device, as in bwtpu; no kernel
+    idx1 = build_fm_index(GENOME, EngineConfig(sa_rate=1, read_len=READ_LEN))
+    shard1 = jax.tree.map(lambda x: x[0], upload_index([idx1]).shard)
+    before = locate_walk.launches
+    got = locate_walk(*_locate_args(idx1), _t(rows), _t(valid), 1).numpy()
+    assert locate_walk.launches == before
+    np.testing.assert_array_equal(got, np.where(valid, idx1.ssa[rows], -1))
+    np.testing.assert_array_equal(got, np.asarray(j_locate_rows(
+        shard1.lattice, shard1.ssa, shard1.C, shard1.dollar_row, jnp.asarray(rows),
+        jnp.asarray(valid), 1)))
