@@ -1,8 +1,9 @@
 """bwtpu_torch command line (counterpart of the repository's cli.py).
 
 Subcommands:
-  build-index  FASTA -> index artifact; the same builder as `cli.py
-               build-index` (the artifact is shared by both packages)
+  build-index  FASTA -> index artifact: the port's copy of the builder
+               of `cli.py build-index`, with its options and defaults;
+               the artifact is the one bwtpu writes and reads
   align        index + single-end reads -> SAM, streamed in batches with
                a checkpointed batch cursor for resume. Routed as cli.py
                routes them: uniform-length FASTQ -> columnar blocks,
@@ -35,15 +36,52 @@ from concurrent.futures import ThreadPoolExecutor
 log = logging.getLogger("bwtpu_torch.cli")
 
 
+def cmd_build_index(args):
+    """FASTA -> sharded index artifact (cli.py's cmd_build_index on the
+    port's host layer)."""
+    from bwtpu_torch.config import EngineConfig
+    from bwtpu_torch.index import build_sharded_index, save_index
+    from bwtpu_torch.io import read_fasta
+
+    t0 = time.time()
+    genome, contigs = read_fasta(args.fasta)
+    cfg = EngineConfig(
+        sa_rate=args.sa_rate,
+        kmer_d=args.kmer_d,
+        read_len=args.read_len,
+        max_hits=args.max_hits,
+        max_cand=args.max_cand,
+    )
+    n_shards = args.shards
+    if n_shards == 0:  # auto: keep every shard under ~256 Mbp
+        n_shards = max(1, -(-len(genome) // (256 * 10**6)))
+    shards, manifest = build_sharded_index(
+        genome, n_shards, config=cfg, contigs=contigs, overlap=args.overlap,
+        jobs=args.jobs,
+    )
+    save_index(args.out, shards, manifest)
+    total_bytes = sum(
+        s.search_lattice.nbytes + s.ssa.nbytes + s.text_packed.nbytes
+        + s.mark_rank_ck.nbytes
+        + sum(t.nbytes for t in s.kmer_tables.values())
+        for s in shards
+    )
+    print(
+        f"built index: {len(genome)} bp, {len(contigs)} contig(s), "
+        f"{n_shards} shard(s), {total_bytes/1e6:.1f} MB, "
+        f"{time.time()-t0:.1f}s -> {args.out}"
+    )
+
+
 def _align_block_stream(engine, stream, manifest, out_path, k, tiered, bs,
                         start_batch, cursor_path, mode):
     """Columnar single-end path: ReadBlock batches -> device -> FlatHits
     -> primary SAM records through the C formatter. finish_block runs on
     one worker thread so host assembly overlaps the next batch's device
     work; SAM and the cursor are written strictly in order."""
-    from bwtpu.results import ContigTable, select_primary_flat
-    from bwtpu.sam import sam_header
-    from bwtpu.samfast import emit_single
+    from bwtpu_torch.results import ContigTable, select_primary_flat
+    from bwtpu_torch.sam import sam_header
+    from bwtpu_torch.samfast import emit_single
 
     ctable = ContigTable.build(manifest.contigs)
     out = (sys.stdout.buffer if out_path in (None, "-")
@@ -95,9 +133,9 @@ def _align_ragged_block_stream(engine, gen, manifest, out_path, k, tiered,
     block per distinct read length (padded to the next power of two) and
     emits in INPUT order (samfast.reorder_sam_records). finish_block runs
     on one worker thread; SAM and the cursor are written in order."""
-    from bwtpu.results import ContigTable, select_primary_flat
-    from bwtpu.sam import sam_header
-    from bwtpu.samfast import emit_single, reorder_sam_records
+    from bwtpu_torch.results import ContigTable, select_primary_flat
+    from bwtpu_torch.sam import sam_header
+    from bwtpu_torch.samfast import emit_single, reorder_sam_records
 
     ctable = ContigTable.build(manifest.contigs)
     out = (sys.stdout.buffer if out_path in (None, "-")
@@ -156,8 +194,8 @@ def _align_read_lists(engine, reads, manifest, out_path, k, bs, start_batch,
                       cursor_path, mode):
     """Read-list path (FASTA, or FASTQ the columnar readers refuse):
     Engine.dispatch_batch / finish_batch with a few batches in flight,
-    SAM through bwtpu.sam.emit_sam; SAM and the cursor in order."""
-    from bwtpu.sam import emit_sam, sam_header
+    SAM through sam.emit_sam; SAM and the cursor in order."""
+    from bwtpu_torch.sam import emit_sam, sam_header
 
     out = sys.stdout if out_path in (None, "-") else open(out_path, mode)
     t_start = time.time()
@@ -194,9 +232,9 @@ def _align_read_lists(engine, reads, manifest, out_path, k, bs, start_batch,
 
 def cmd_align(args) -> dict:
     """Align; returns the summary that is also printed to stderr."""
-    from bwtpu.index import load_index
-    from bwtpu.io import read_reads
-    from bwtpu.readblock import read_fastq_stream, read_fastq_stream_ragged
+    from bwtpu_torch.index import load_index
+    from bwtpu_torch.io import read_reads
+    from bwtpu_torch.readblock import read_fastq_stream, read_fastq_stream_ragged
     from bwtpu_torch.engine import Engine
 
     if args.paired:
@@ -247,7 +285,7 @@ def _autotune(engine, reads_path, k, bs) -> None:
     longer than read_len) skips tuning; an unreadable one is logged and
     skips it, as in cli.py. The probe itself runs outside any handler: a
     kernel build or launch failure, or a CUDA error, propagates."""
-    from bwtpu.readblock import read_fastq_stream
+    from bwtpu_torch.readblock import read_fastq_stream
 
     try:
         res = read_fastq_stream(reads_path, bs)
@@ -295,15 +333,25 @@ def _save_cursor(path, next_batch):
 def main(argv=None):
     """Parse argv and run the subcommand; returns what it returns."""
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s %(message)s")
-    from bwtpu.hosttune import tune_malloc
+    from bwtpu_torch.hosttune import tune_malloc
 
     tune_malloc()
     p = argparse.ArgumentParser(prog="bwtpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    # its arguments go unparsed to cli.py build-index (see below)
-    sub.add_parser("build-index", add_help=False,
-                   help="build an FM-index artifact: cli.py build-index")
+    b = sub.add_parser("build-index", help="build an FM-index artifact")
+    b.add_argument("fasta")
+    b.add_argument("out")
+    b.add_argument("--shards", type=int, default=0, help="0 = auto")
+    b.add_argument("--sa-rate", type=int, default=8)
+    b.add_argument("--kmer-d", type=int, default=None)
+    b.add_argument("--read-len", type=int, default=100)
+    b.add_argument("--max-hits", type=int, default=16)
+    b.add_argument("--max-cand", type=int, default=32)
+    b.add_argument("--overlap", type=int, default=256)
+    b.add_argument("--jobs", type=int, default=1,
+                   help="parallel shard-build processes")
+    b.set_defaults(fn=cmd_build_index)
 
     a = sub.add_parser("align", help="align reads, emit SAM")
     a.add_argument("index")
@@ -329,13 +377,7 @@ def main(argv=None):
     a.add_argument("--rescore", action="store_true", help="not covered yet (ROADMAP slice 7)")
     a.set_defaults(fn=cmd_align)
 
-    args, rest = p.parse_known_args(argv)
-    if args.cmd == "build-index":
-        import cli  # the repository's own parser, defaults and builder
-
-        return cli.main(["build-index", *rest])
-    if rest:
-        p.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = p.parse_args(argv)
     return args.fn(args)
 
 

@@ -26,7 +26,7 @@ table (d = 0) run the 1-step pipelines with dense outputs:
   (search_chain1 kernel, then search_chain2 on the stragglers) ->
   compaction -> locate [+ verify at k > 0] -> scatter back
 
-The host assembles hits with bwtpu.results. Outputs equal bwtpu's: the
+The host assembles hits with results.py. Outputs equal bwtpu's: the
 same hit sets, truncation marks, heals and SAM bytes. Shapes not covered
 yet raise NotImplementedError naming their ROADMAP slice. Torch runs
 eagerly, so the reference's jit program cache has no counterpart, and
@@ -43,12 +43,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from bwtpu import dna
-from bwtpu.config import EngineConfig
-from bwtpu.golden import Hit
-from bwtpu.index import OCCK_STEP_FROM_WIDTH, FMIndex
-from bwtpu.io import Read
-from bwtpu.results import FlatHits, flatten_hits
+from bwtpu_torch import dna
+from bwtpu_torch.config import EngineConfig
+from bwtpu_torch.golden import Hit
+from bwtpu_torch.index import OCCK_STEP_FROM_WIDTH, FMIndex
+from bwtpu_torch.io import Read
+from bwtpu_torch.results import FlatHits, flatten_hits
 from bwtpu_torch.kernels.common import i32, popcount32
 from bwtpu_torch.kernels.compact import compact, compact_counts, scatter_back
 from bwtpu_torch.kernels.locate import locate_walk
@@ -337,10 +337,9 @@ def _locate_compacted(shard: Shard, rows, counts, *, sa_rate, cap):
     them, scatter positions back (-1 fill). Returns (pos, loc_over,
     dropped bool[lanes]): lanes whose rows did not all fit the cap."""
     sel, count, loc_over, dropped = compact_counts(counts, rows.shape[-1], cap)
-    sel_valid = torch.arange(cap, dtype=torch.int32, device=rows.device) < count
-    # sel indexes a live lane's own slots, so the gather is in range
+    # sel indexes a live lane's own slots, so locate's row gather is in range
     pos_c = locate_walk(shard.lattice, shard.ssa, shard.C, shard.dollar_row,
-                        rows.reshape(-1).index_select(0, sel), sel_valid, sa_rate)
+                        rows.reshape(-1), sel, count, sa_rate)
     pos = scatter_back(pos_c, sel, count, rows.numel(), fill=-1)
     return pos.reshape(rows.shape), loc_over, dropped
 
@@ -402,7 +401,7 @@ def _inexact_from_intervals(shard: Shard, sp, ep, seed_off, read_words,
     compaction overflow; with compact_output=False the candidates are
     scattered back to dense (B2, (k+1) * max_loc) planes instead (fill -1
     / NM_INVALID): (cand, nm, nm <= k, overflow, comp_over). Duplicates
-    across seed slots are left for the host assembler (bwtpu.results
+    across seed slots are left for the host assembler (results.py
     dedupes on (read, pos, strand)).
     """
     B2 = read_words.shape[0]
@@ -414,7 +413,6 @@ def _inexact_from_intervals(shard: Shard, sp, ep, seed_off, read_words,
         B2, nS).sum(1, dtype=torch.int32)
     sel_valid = torch.arange(cap, dtype=torch.int32, device=sp.device) < count
     # sel indexes a live lane's own slots, so every gather below is in range
-    rows_c = rows.reshape(-1).index_select(0, sel)
     lane = sel // max_loc
     b_idx = lane // nS
     off_l = seed_off.index_select(0, lane)
@@ -423,12 +421,13 @@ def _inexact_from_intervals(shard: Shard, sp, ep, seed_off, read_words,
     if sa_rate == 1 and shard.locv.shape[-1] > 1:
         # fused locate+verify: ONE row per candidate yields the SA value
         # and the text window (verify2.build_locv_rows)
-        spos_c, nm_c = verify_locv(shard.locv, shard.text_len, rows_c, sel_valid,
+        spos_c, nm_c = verify_locv(shard.locv, shard.text_len,
+                                   rows.reshape(-1).index_select(0, sel), sel_valid,
                                    off_l, *reads_c)
         cand_c = spos_c - off_l
     else:
         spos_c = locate_walk(shard.lattice, shard.ssa, shard.C, shard.dollar_row,
-                             rows_c, sel_valid, sa_rate)
+                             rows.reshape(-1), sel, count, sa_rate)
         cand_c = spos_c - off_l
         nm_c = verify_nm(shard.text_rows, shard.text_len, cand_c,
                          sel_valid & (spos_c >= 0), *reads_c)
@@ -640,8 +639,8 @@ class BatchStats:
 
 def _assemble_flat(reads, B, s_idx, row_idx, p, m, text_lens, offsets):
     """Flat (shard, read-strand row, local pos, nm) vectors -> per-read
-    deduped sorted Hit lists (bwtpu.results)."""
-    from bwtpu.results import hit_lists
+    deduped sorted Hit lists (results.py)."""
+    from bwtpu_torch.results import hit_lists
 
     read_lens = np.array([len(r.seq) for r in reads], dtype=np.int64)
     flat = flatten_hits(
@@ -1024,7 +1023,7 @@ class Engine:
     def dispatch_block(self, block, k: int | None = None,
                        pad_to: int | None = None, _level: int = 0,
                        tiered: bool = False):
-        """Run a uniform-length columnar ReadBlock (bwtpu.readblock)
+        """Run a uniform-length columnar ReadBlock (readblock.py)
         through the packed pipelines. pad_to keeps batch shapes fixed
         across a stream; pad rows are all-ambiguous and die at the start
         table. Output modes, as in bwtpu: "hits" (one compacted hit
@@ -1034,7 +1033,7 @@ class Engine:
         the full inexact pipeline runs instead, whose results are a
         superset of the tiered contract). Returns a handle for
         finish_block."""
-        from bwtpu.readblock import pack_block
+        from bwtpu_torch.readblock import pack_block
 
         k = self.config.k if k is None else k
         L = block.L
@@ -1065,7 +1064,7 @@ class Engine:
         return ("block", block, Bp, k, out, time.perf_counter(), mode, _level)
 
     def finish_block(self, handle) -> FlatHits:
-        """Materialize a dispatch_block handle -> bwtpu.results.FlatHits.
+        """Materialize a dispatch_block handle -> results.FlatHits.
 
         Any capacity overflow re-dispatches the block with doubled caps
         (bounded by config.max_heals); reads still overflowed at the last

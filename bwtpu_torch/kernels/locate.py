@@ -1,13 +1,15 @@
 """Batched locate (counterpart of bwtpu/kernels/locate.py).
 
-`locate_walk` is the entry point. At sa_rate > 1, on CUDA tensors it
-launches the hand-written kernel csrc/locate.cu (one thread per lane
-walks up to sa_rate dependent records and exits at its mark bit); on CPU
-tensors it runs `locate_rows`, the plain-torch version of the same
-function, which the tests hold against bwtpu and chip_smoke.py holds the
-kernel against. At sa_rate == 1 every row is sampled and ssa is the
-suffix array, so locate is one masked element gather on any device, as
-in the reference: no walk and no kernel.
+`locate_walk` is the entry point: it locates the compacted rows
+rows[sel[j]], j < count. At sa_rate > 1, on CUDA tensors it launches
+the hand-written kernel csrc/locate.cu (one thread per lane gathers its
+row, walks up to sa_rate dependent records and exits at its mark bit);
+on CPU tensors it runs `_locate_plain`, the row gather and
+`locate_rows`, the plain-torch version of the walk, which the tests
+hold against bwtpu and chip_smoke.py holds the kernel against. At
+sa_rate == 1 every row is sampled and ssa is the suffix array, so
+locate is one masked element gather on any device, as in the
+reference: no walk and no kernel.
 
 Index ranges: valid rows lie in [0, n), so every record index r >> 7 is
 a lattice row; a found lane's rank is < len(ssa); a lane not found in
@@ -57,36 +59,43 @@ def locate_rows(lattice, ssa, C, dollar_row: int, rows, valid, sa_rate: int):
     return torch.where(valid, pos, -1)
 
 
-def locate_walk(lattice, ssa, C, dollar_row: int, rows, valid, sa_rate: int):
-    """Positions int32[B] of SA rows (-1 where not valid): the CUDA kernel
-    on CUDA tensors, `locate_rows` on CPU tensors, else an error.
+def _locate_plain(lattice, ssa, C, dollar_row: int, rows, sel, count, sa_rate: int):
+    """Plain version of locate_walk: the row gather, then locate_rows."""
+    valid = torch.arange(sel.shape[0], dtype=torch.int32, device=sel.device) < count
+    # sel indexes rows everywhere (0 beyond count), so the gather is in range
+    return locate_rows(lattice, ssa, C, dollar_row, rows.index_select(0, sel), valid,
+                       sa_rate)
 
-    The kernel replaces bwtpu/kernels/pallas_step.py::locate_step_pallas
-    and the sa_rate-trip loop around it. On the H100 it is bound by the
-    latency of up to sa_rate dependent 128 B record loads per lane (the
-    lattice sits in L2 at bacterial scale); each thread stops at its
-    mark bit. At sa_rate == 1 no kernel runs (one ssa gather)."""
+
+def locate_walk(lattice, ssa, C, dollar_row: int, rows, sel, count, sa_rate: int):
+    """Positions int32[len(sel)] of the SA rows rows[sel[j]], j < count
+    (`compact_counts`' outputs; count stays on the device), -1 beyond
+    count: the CUDA kernel on CUDA tensors, `_locate_plain` on CPU
+    tensors, else an error.
+
+    The kernel replaces bwtpu/kernels/pallas_step.py::locate_step_pallas,
+    the sa_rate-trip loop around it and the row gather before it. On the
+    H100 it is bound by the latency of up to sa_rate dependent record
+    loads per lane (the lattice sits in L2 at bacterial scale); each
+    thread stops at its mark bit. At sa_rate == 1 no kernel runs (one
+    ssa gather)."""
     dev = rows.device
     if dev.type == "cpu" or sa_rate == 1:
-        return locate_rows(lattice, ssa, C, dollar_row, rows, valid, sa_rate)
+        return _locate_plain(lattice, ssa, C, dollar_row, rows, sel, count, sa_rate)
     if dev.type != "cuda":
         raise ValueError(f"locate_walk: no kernel for device {dev}")
-    for name, t, dtype, ndim in (("lattice", lattice, torch.int32, 2),
-                                 ("ssa", ssa, torch.int32, 1),
-                                 ("C", C, torch.int32, 1),
-                                 ("rows", rows, torch.int32, 1),
-                                 ("valid", valid, torch.bool, 1)):
-        _build.check_tensor("locate_walk", name, t, dtype, ndim, dev)
-    if lattice.shape[1] != 32 or C.shape[0] < 5 or valid.shape != rows.shape:
-        raise ValueError("locate_walk: lattice must be [n_blocks+1, 32], C "
-                         "[>=5] and valid shaped like rows")
+    for name, t, ndim in (("lattice", lattice, 2), ("ssa", ssa, 1), ("C", C, 1),
+                          ("rows", rows, 1), ("sel", sel, 1), ("count", count, 0)):
+        _build.check_tensor("locate_walk", name, t, torch.int32, ndim, dev)
+    if lattice.shape[1] != 32 or C.shape[0] < 5:
+        raise ValueError("locate_walk: lattice must be [n_blocks+1, 32] and C [>=5]")
     if lattice.data_ptr() % 16:
         raise ValueError("locate_walk: lattice must be 16-byte aligned")
-    pos = torch.empty_like(rows)
+    pos = torch.empty_like(sel)
     lib = _lib()
     rc = lib.bwtpu_locate_walk(
         lattice.data_ptr(), ssa.data_ptr(), C.data_ptr(), rows.data_ptr(),
-        valid.data_ptr(), rows.shape[0], sa_rate, int(dollar_row),
+        sel.data_ptr(), count.data_ptr(), sel.shape[0], sa_rate, int(dollar_row),
         pos.data_ptr(), _build.stream_of(rows),
     )
     _build.check(lib, rc, "locate_walk")
@@ -103,5 +112,5 @@ def _lib():
     if f.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         f.restype = ctypes.c_int
-        f.argtypes = [p, p, p, p, p, i, i, i, p, p]
+        f.argtypes = [p, p, p, p, p, p, i, i, i, p, p]
     return lib

@@ -11,13 +11,15 @@ Kernel wrappers: `search_chain1` (csrc/search1.cu) and `search_chain2`
 (csrc/search2.cu) launch a kernel on CUDA tensors and run the plain
 chain on CPU tensors; anything else raises, and nothing falls back.
 `backward_search_ra` and both straggler fixups run on them. The
-reference's `lax.cond` on the straggler count becomes a Python `if` (one
-device sync).
+reference's `lax.cond` on the straggler count has no counterpart: the
+count stays on the device and the kernel's threads past it exit, so the
+fixups do not sync.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -146,28 +148,110 @@ def search_chain1(lattice, C, dollar_row: int, ra_codes, ra_amb, lens, sp0, ep0,
 search_chain1.launches = 0  # kernel launches since the last reset
 
 
-def search_chain2(lattice, C, dollar_row: int, ra_codes, ra_amb, lens, sp0, ep0,
-                  d: int):
-    """The always-correct chain: (sp, ep). The CUDA kernel on CUDA
-    tensors, `_two_gather_search` on CPU tensors, else an error."""
-    if not _on_cuda("search_chain2", ra_codes):
-        return _two_gather_search(lattice, C, dollar_row, ra_codes, ra_amb, lens,
-                                  sp0, ep0, d)
-    _check_chain_args("search_chain2", lattice, C, ra_codes, ra_amb, lens, sp0, ep0, d)
-    B, L = ra_codes.shape
-    sp, ep = torch.empty_like(sp0), torch.empty_like(ep0)
-    lib = _lib("search2", "bwtpu_search_chain2", 3)
-    rc = lib.bwtpu_search_chain2(
-        lattice.data_ptr(), C.data_ptr(), int(dollar_row), ra_codes.data_ptr(),
-        ra_amb.data_ptr(), lens.data_ptr(), sp0.data_ptr(), ep0.data_ptr(), B, L,
-        d, sp.data_ptr(), ep.data_ptr(), _build.stream_of(sp0),
-    )
+class Packed(NamedTuple):
+    """A finisher's patterns as the packed pipelines hold them: bases
+    [off, off + slen) of each 2-bit packed row (int32[B, W] words and
+    ambiguity bits, prep.py's layout)."""
+
+    words: torch.Tensor
+    amb_bits: torch.Tensor
+    off: int
+    slen: int
+
+
+class Planes(NamedTuple):
+    """A finisher's patterns as the 1-step path holds them: right-aligned
+    int32[B, L] code and ambiguity planes and int32[B] lengths."""
+
+    codes: torch.Tensor
+    amb: torch.Tensor
+    lens: torch.Tensor
+
+
+def lane_planes(pattern, lanes):
+    """(codes, amb, lens) of the given lanes (int64) of a `Packed` or
+    `Planes` pattern, as `_two_gather_search` takes them."""
+    if isinstance(pattern, Packed):
+        codes = unpack_slice(pattern.words.index_select(0, lanes), pattern.off, pattern.slen)
+        amb = unpack_slice(pattern.amb_bits.index_select(0, lanes), pattern.off,
+                           pattern.slen)
+        return codes, amb, torch.full_like(lanes, pattern.slen, dtype=torch.int32)
+    return tuple(x.index_select(0, lanes) for x in pattern)
+
+
+def _chain2_plain(lattice, C, dollar_row: int, pattern, sp0, ep0, sel, count, sp, ep,
+                  d: int) -> None:
+    """Plain version of search_chain2: gathers (and unpacks) the lanes
+    sel[:count], runs `_two_gather_search` on them and writes their (sp,
+    ep) into sp and ep in place."""
+    lanes = sel[: int(count)].to(torch.int64)
+    codes, amb, lens = lane_planes(pattern, lanes)
+    msp, mep = _two_gather_search(lattice, C, dollar_row, codes, amb, lens,
+                                  sp0.index_select(0, lanes), ep0.index_select(0, lanes), d)
+    sp[lanes] = msp
+    ep[lanes] = mep
+
+
+def search_chain2(lattice, C, dollar_row: int, pattern, sp0, ep0, sel, count, sp, ep,
+                  d: int) -> None:
+    """The always-correct chain over the compacted lanes sel[j], j <
+    count (`compact`'s outputs; count stays on the device): each such
+    lane's chain from (sp0, ep0)[lane] over its pattern (`Packed` or
+    `Planes`), written into sp[lane] and ep[lane] IN PLACE; no other
+    lane is touched. The CUDA kernel on CUDA tensors, `_chain2_plain` on
+    CPU tensors, else an error."""
+    if not _on_cuda("search_chain2", sp):
+        return _chain2_plain(lattice, C, dollar_row, pattern, sp0, ep0, sel, count, sp, ep,
+                             d)
+    dev = sp.device
+    named = [("lattice", lattice, 2), ("C", C, 1), ("sp0", sp0, 1), ("ep0", ep0, 1),
+             ("sel", sel, 1), ("count", count, 0), ("sp", sp, 1), ("ep", ep, 1)]
+    named += [(f"pattern.{k}", v, 2 if k != "lens" else 1)
+              for k, v in pattern._asdict().items() if isinstance(v, torch.Tensor)]
+    for name, t, ndim in named:
+        _build.check_tensor("search_chain2", name, t, torch.int32, ndim, dev)
+    B = sp.shape[0]
+    if lattice.shape[1] != 32 or C.shape[0] < 5 or lattice.data_ptr() % 16:
+        raise ValueError("search_chain2: lattice must be a 16-byte aligned "
+                         "[n_blocks+1, 32] and C [>=5]")
+    if not (sp0.shape == ep0.shape == ep.shape == (B,)):
+        raise ValueError("search_chain2: per-lane inputs disagree in shape")
+    packed = isinstance(pattern, Packed)
+    if packed:
+        W = pattern.words.shape[1]
+        if not (pattern.words.shape == pattern.amb_bits.shape == (B, W)
+                and 0 <= d <= pattern.slen and pattern.off >= 0
+                and pattern.off + pattern.slen <= 16 * W):
+            raise ValueError("search_chain2: packed rows, slice and d disagree")
+        ptrs = (pattern.words.data_ptr(), pattern.amb_bits.data_ptr(), W,
+                int(pattern.off), int(pattern.slen))
+    else:
+        L = pattern.codes.shape[1]
+        if not (pattern.codes.shape == pattern.amb.shape == (B, L)
+                and pattern.lens.shape == (B,) and 0 <= d <= L):
+            raise ValueError("search_chain2: planes and d disagree")
+        ptrs = (pattern.codes.data_ptr(), pattern.amb.data_ptr(), pattern.lens.data_ptr(), L)
+    lib, f = _chain2_entry(packed)
+    rc = f(lattice.data_ptr(), C.data_ptr(), int(dollar_row), *ptrs, sp0.data_ptr(),
+           ep0.data_ptr(), sel.data_ptr(), count.data_ptr(), sel.shape[0], d,
+           sp.data_ptr(), ep.data_ptr(), _build.stream_of(sp))
     _build.check(lib, rc, "search_chain2")
     _build.count_launch(search_chain2)
-    return sp, ep
 
 
 search_chain2.launches = 0  # kernel launches since the last reset
+
+
+def _chain2_entry(packed: bool):
+    """(library, entry point) of search2.cu for Packed or Planes patterns."""
+    lib = _build.library("search2")
+    f = lib.bwtpu_search_chain2_packed if packed else lib.bwtpu_search_chain2_planes
+    if f.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        head = [p, p, i, p, p] + ([i] * 3 if packed else [p, i])
+        f.restype = i
+        f.argtypes = head + [p] * 4 + [i] * 2 + [p] * 3
+    return lib, f
 
 
 def _lib(source: str, entry: str, n_out: int):
@@ -218,15 +302,6 @@ def backward_search_ra(lattice, C, dollar_row: int, n: int, kmer_table, ra_codes
                              cap=min(B, max(256, B // 8) * cap_scale))
 
 
-def _put_back(sp, ep, sel, in_sel, msp, mep):
-    """Scatter the fixed lanes' (msp, mep) to lanes sel[i] (i < count)."""
-    B = sp.shape[0]
-    slot = torch.where(in_sel, sel, B).to(torch.int64)  # B = spill slot
-    spill = sp.new_zeros(1)
-    return (torch.cat([sp, spill]).scatter(0, slot, msp)[:B],
-            torch.cat([ep, spill]).scatter(0, slot, mep)[:B])
-
-
 def _force_over(sp, ep, strag, cap: int):
     """Force the flagged lanes past the fixup capacity empty; returns
     (sp, ep, over_lane int32)."""
@@ -239,38 +314,24 @@ def _force_over(sp, ep, strag, cap: int):
 def _fixup_stragglers(lattice, C, dollar_row: int, ra_codes, ra_amb, lens,
                       sp0, ep0, sp, ep, strag, d: int, cap: int):
     """Re-run the flagged lanes' whole chain from (sp0, ep0) on the
-    two-record chain, compacted to `cap` lanes. Returns (sp, ep,
-    over_lane int32[B]): lanes past the capacity are forced empty and
-    flagged, never silently wrong."""
+    two-record chain, compacted to `cap` lanes; sp and ep are updated in
+    place. Returns (sp, ep, over_lane int32[B]): lanes past the capacity
+    are forced empty and flagged, never silently wrong."""
     sel, count, _ = compact(strag, cap)
-    if int(count) > 0:
-        in_sel = torch.arange(cap, dtype=torch.int32, device=sel.device) < count
-        msp, mep = search_chain2(
-            lattice, C, dollar_row, ra_codes.index_select(0, sel),
-            ra_amb.index_select(0, sel),
-            torch.where(in_sel, lens.index_select(0, sel), 0),
-            sp0.index_select(0, sel),
-            torch.where(in_sel, ep0.index_select(0, sel), 0), d)
-        sp, ep = _put_back(sp, ep, sel, in_sel, msp, mep)
+    search_chain2(lattice, C, dollar_row, Planes(ra_codes, ra_amb, lens), sp0, ep0, sel,
+                  count, sp, ep, d)
     return _force_over(sp, ep, strag, cap)
 
 
 def _fixup_stragglers_packed(lattice, C, dollar_row: int, words, amb_bits,
                              off: int, slen: int, sp0, ep0, sp, ep, strag,
                              d: int, cap: int):
-    """_fixup_stragglers for 2-bit packed rows: only the flagged lanes'
-    bases [off, off+slen) are unpacked. Same (sp, ep, over_lane)."""
+    """_fixup_stragglers for 2-bit packed rows: the chain reads the
+    flagged lanes' bases [off, off+slen) straight from the packed rows.
+    Same (sp, ep, over_lane)."""
     sel, count, _ = compact(strag, cap)
-    if int(count) > 0:
-        in_sel = torch.arange(cap, dtype=torch.int32, device=sel.device) < count
-        msp, mep = search_chain2(
-            lattice, C, dollar_row,
-            unpack_slice(words.index_select(0, sel), off, slen),
-            unpack_slice(amb_bits.index_select(0, sel), off, slen),
-            torch.where(in_sel, slen, 0).to(torch.int32),
-            sp0.index_select(0, sel),
-            torch.where(in_sel, ep0.index_select(0, sel), 0), d)
-        sp, ep = _put_back(sp, ep, sel, in_sel, msp, mep)
+    search_chain2(lattice, C, dollar_row, Packed(words, amb_bits, off, slen), sp0, ep0,
+                  sel, count, sp, ep, d)
     return _force_over(sp, ep, strag, cap)
 
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from bwtpu.index import OCCK_BLOCK
+from bwtpu_torch.index import OCCK_BLOCK
 from bwtpu_torch.kernels import common, prep
 from bwtpu_torch.kernels.search2 import _fixup_stragglers_packed
 

@@ -5,13 +5,19 @@
 
 Phases, in order; any failure raises and the exit code is not 0:
   1. the card: nvidia-smi name + power limit, torch's device name;
-  2. build the six CUDA kernels (nvcc, sm_90a) from bwtpu_torch/csrc,
-     one nvcc per source, all started together;
+  2. build and load the port's native host library (g++, from
+     bwtpu_torch/csrc/host; required), then the six CUDA kernels (nvcc,
+     sm_90a) from bwtpu_torch/csrc, one nvcc per source, all started
+     together;
   3. `build-index --sa-rate 1` of the E. coli-size genome (phase 7's
-     index); each kernel against its plain-torch version on the card at
-     main-path shapes (exact equality), with CUDA-event times of both:
-     verify_locv at that index's locv table, row_gather_sum at that
-     table (Wr 16) and at the 9.3 MB multi-step lattice (Wr 128);
+     index); each kernel against its plain-torch version on the card
+     (exact equality), with CUDA-event times of both (a run of 50
+     launches between one event pair, divided by 50) and its bound:
+     search_chain2, locate_walk and verify_nm on the very arguments one
+     block of phase 5's reads hands them (k = 0 and k = 2; search_chain2
+     also on one lane alone, its latency floor), the 1-step search_chain1 at the Read-list path's shapes, verify_locv at
+     that index's locv table, row_gather_sum at that table (Wr 16) and
+     at the 9.3 MB multi-step lattice (Wr 128);
   4. phiX174 through the port's CLI on the card, byte-equal to
      data/phiX174_golden.sam;
   5. slice 1's path at E. coli scale: `build-index` with the CLI
@@ -75,23 +81,48 @@ def say(*a) -> None:
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Median of `reps` CUDA-event timings of fn() after warm-up calls."""
+def cuda_ms(fn, reps: int = 50) -> float:
+    """Device time of one fn() call: CUDA events around `reps`
+    back-to-back calls, divided by `reps`, after warm-up calls. The
+    calls are queued behind a ~30 ms device sleep, so the host's
+    per-call overhead overlaps the device's work instead of leaving the
+    card idle between launches."""
     import torch
 
-    for _ in range(min(3, reps)):
+    for _ in range(3):
         fn()
-    times = []
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+# H100 SXM peaks (NVIDIA's published figures): HBM3 bytes/s,
+# and the float32 rate outside the tensor cores, which stands here for the
+# kernels' 32-bit integer ALU work (an upper rate, so the bound stays a
+# lower bound)
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the ALU rate, whichever is larger."""
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    return dict(bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations",
+                bound_bytes=int(nbytes), bound_ops=int(ops))
+
+
+def n_unique(t) -> int:
+    import torch
+
+    return int(torch.unique(t).numel()) if t.numel() else 0
 
 
 def phase_card():
@@ -110,9 +141,15 @@ def phase_card():
 
 
 def phase_build():
+    from bwtpu_torch import sais
     from bwtpu_torch.kernels import _build
 
-    say("[2] kernel build (nvcc -gencode arch=compute_90a,code=sm_90a), in parallel")
+    say("[2] the port's native host library (g++), then the kernel build (nvcc "
+        "-gencode arch=compute_90a,code=sm_90a), in parallel")
+    require(sais.native_available(), "the native host library did not build or load "
+                                     "(bwtpu_torch/csrc/host/*.cc)")
+    say(f"  native host library loaded: {os.path.relpath(sais.build_info['so'])} "
+        f"(built in {sais.build_info['seconds']:.2f} s)")
     t0 = time.perf_counter()
     names = ("locate", "verify", "search1", "search2", "gather")
     _build.build_all(names)
@@ -137,17 +174,18 @@ def build_sa1_index(tmp: str, fa: str) -> str:
     return idx_dir
 
 
-def phase_kernels(tmp: str, genome: str, fa: str, reads):
-    """Kernel vs plain at main-path shapes; returns the kernel records
-    and the sa_rate 1 index directory. `reads` are the Read-list phase's
-    mixed-length reads."""
+def phase_kernels(tmp: str, genome: str, fa: str, reads, block_reads):
+    """Kernel vs plain: edge cases, then the main path's own calls;
+    returns the kernel records and the sa_rate 1 index directory.
+    `reads` are the Read-list phase's mixed-length reads, `block_reads`
+    phase 5's first block."""
     import numpy as np
     import torch
 
-    from bwtpu.config import EngineConfig
-    from bwtpu.index import build_fm_index
+    from bwtpu_torch.config import EngineConfig
     from bwtpu_torch.engine import _len_mask_words
-    from bwtpu_torch.kernels.locate import locate_rows, locate_walk
+    from bwtpu_torch.index import build_fm_index
+    from bwtpu_torch.kernels.locate import _locate_plain, locate_walk
     from bwtpu_torch.kernels.verify2 import (build_text_rows, verify_nm,
                                              verify_packed)
 
@@ -156,7 +194,6 @@ def phase_kernels(tmp: str, genome: str, fa: str, reads):
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    records = {}
 
     for sa_rate in (8, 16):
         idx = build_fm_index(genome, EngineConfig(sa_rate=sa_rate))
@@ -165,27 +202,26 @@ def phase_kernels(tmp: str, genome: str, fa: str, reads):
         rows[:4] = [idx.dollar_row, idx.n - 1, 0, 1]  # '$' row, last row
         valid = rng.random(LANES) < 0.9
         valid[:4] = True
-        rows_t, valid_t = put(rows), put(valid)
-        err = 0
+        # compacted lanes as compact_counts hands them over: the first
+        # `count` slots name distinct rows, the rest are 0
+        n_live = int(valid.sum())
+        sel = np.zeros(LANES, np.int32)
+        sel[:n_live] = rng.permutation(np.flatnonzero(valid))
+        rows_t, sel_t, count_t = put(rows), put(sel), torch.tensor(n_live, device=dev,
+                                                                   dtype=torch.int32)
         # the index's own walk, then a walk too short for it: lanes not
         # found within the trips must report ssa[0] + 0 in both versions
         for trips in (sa_rate, sa_rate // 2):
-            got = locate_walk(lat, ssa, C, idx.dollar_row, rows_t, valid_t, trips)
-            ref = locate_rows(lat, ssa, C, idx.dollar_row, rows_t, valid_t, trips)
+            got = locate_walk(lat, ssa, C, idx.dollar_row, rows_t, sel_t, count_t, trips)
+            ref = _locate_plain(lat, ssa, C, idx.dollar_row, rows_t, sel_t, count_t, trips)
             torch.cuda.synchronize()
-            err = max(err, int((got.long() - ref.long()).abs().max()))
-            require(err == 0, f"locate_walk != locate_rows (sa_rate {sa_rate}, "
+            err = int((got.long() - ref.long()).abs().max())
+            require(err == 0, f"locate_walk != plain (sa_rate {sa_rate}, "
                               f"{trips} trips): max |diff| {err}")
-        at_ssa0 = int(((ref == int(idx.ssa[0])) & valid_t).sum())
-        ms = cuda_ms(lambda: locate_walk(lat, ssa, C, idx.dollar_row, rows_t,
-                                         valid_t, sa_rate))
-        plain = cuda_ms(lambda: locate_rows(lat, ssa, C, idx.dollar_row, rows_t,
-                                            valid_t, sa_rate))
-        say(f"  locate_walk  sa_rate {sa_rate:2d}, {LANES} lanes: equal; kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms; lanes at ssa[0] after the short "
-            f"walk: {at_ssa0}")
-        if sa_rate == 8:  # the CLI default: the main path's shapes
-            records["locate_walk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+        at_ssa0 = int((ref[:n_live] == int(idx.ssa[0])).sum())
+        say(f"  locate_walk  sa_rate {sa_rate:2d}, {n_live} of {LANES} lanes on random "
+            f"rows: equal; lanes at ssa[0] after the short walk: {at_ssa0}")
+        if sa_rate == 8:  # the CLI default: the main path's index
             idx8 = idx
             text_rows = put(build_text_rows(idx.text_packed, 100))
             text_len = idx.text_len
@@ -207,15 +243,232 @@ def phase_kernels(tmp: str, genome: str, fa: str, reads):
     torch.cuda.synchronize()
     err = int((got - ref).abs().max())
     require(err == 0, f"verify_nm != verify_packed: max |diff| {err}")
-    ms = cuda_ms(lambda: verify_nm(*args))
-    plain = cuda_ms(lambda: verify_packed(*args))
-    say(f"  verify_nm    L {L}, W {W}, {LANES} candidates: equal; kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms; in range {int((ref != 255).sum())}")
-    records["verify_nm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    say(f"  verify_nm    L {L}, W {W}, {LANES} random candidates: equal; in range "
+        f"{int((ref != 255).sum())}")
+    records = main_path_kernels(idx8, block_reads)
     records.update(search_kernels(idx8, reads[:BATCH], put))
     locv = locv_kernel(genome, sa1_dir, put, rng, records)
     records["row_gather_sum"] = gather_kernel(put(locv), latk, rng)
     return records, sa1_dir
+
+
+@contextlib.contextmanager
+def capturing(owner, name: str, calls: list):
+    """Record a copy of the positional arguments of every call of
+    owner.name while the block runs (the call itself goes through)."""
+    import torch
+
+    orig = getattr(owner, name)
+
+    def rec(*args):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return orig(*args)
+
+    rec.launches = 0  # the wrapper counts its launch on the name it is called by
+    setattr(owner, name, rec)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def main_path_kernels(idx, block_reads):
+    """search_chain2, locate_walk and verify_nm on the arguments the main
+    path itself hands them: one block of phase 5's reads through
+    Engine.dispatch_block + finish_block on the CLI-default index, at
+    k = 0 (the full-read finisher) and k = 2 (the seeds' finishers,
+    65,536 locate and verify lanes). Each call is checked against its
+    plain version and timed (RUNS timings, their median recorded and
+    their range printed); its bound is counted from these inputs."""
+    import torch
+
+    from bwtpu_torch import engine
+    from bwtpu_torch.kernels import locate, search2
+    from bwtpu_torch.kernels.verify2 import verify_nm, verify_packed
+    from bwtpu_torch.readblock import ReadBlock
+
+    blk = ReadBlock.from_reads(block_reads)
+    calls = {k: {"search_chain2": [], "locate_walk": [], "verify_nm": []} for k in (0, 2)}
+    for k in (0, 2):
+        eng = engine.Engine([idx], device="cuda")
+        with capturing(search2, "search_chain2", calls[k]["search_chain2"]), \
+                capturing(engine, "locate_walk", calls[k]["locate_walk"]), \
+                capturing(engine, "verify_nm", calls[k]["verify_nm"]):
+            eng.finish_block(eng.dispatch_block(blk, k, pad_to=BATCH))
+        say(f"  one block of phase 5 at k={k}: heals {eng.stats.heals}; calls "
+            f"{ {n: len(c) for n, c in calls[k].items()} }")
+    kernels = {"search_chain2": (search2.search_chain2, search2._chain2_plain, chain2_work),
+               "locate_walk": (locate.locate_walk, locate._locate_plain, locate_work),
+               "verify_nm": (verify_nm, verify_packed, verify_work)}
+    # (name, k, call index, time the plain version too): the first call of
+    # the block at each k; the heal's re-run repeats them at doubled caps
+    require(calls[0]["search_chain2"] and len(calls[2]["search_chain2"]) >= 3
+            and calls[2]["locate_walk"] and calls[2]["verify_nm"],
+            f"the block did not reach every kernel: "
+            f"{ {k: {n: len(c) for n, c in v.items()} for k, v in calls.items()} }")
+    plan = [("search_chain2", 0, 0, True)] + [
+        ("search_chain2", 2, i, i == 0) for i in range(3)] + [
+        ("locate_walk", 2, 0, True), ("verify_nm", 2, 0, True)]
+    records = {}
+    for name, k, i, time_plain in plan:
+        kern, plain, work = kernels[name]
+        args = calls[k][name][i]
+        want = call_outputs(name, plain, args)
+        got = call_outputs(name, kern, args)
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+        require(err == 0, f"{name} != plain on the main path's call (k={k}, #{i})")
+        targs = fresh_args(name, args)
+        mine = sorted(cuda_ms(lambda: kern(*targs)) for _ in range(RUNS))
+        ms = mine[RUNS // 2]
+        plain_ms = (cuda_ms(lambda: plain(*fresh_args(name, args))) if time_plain
+                    else None)
+        nbytes, ops, what = work(args)
+        rec = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, **bound(nbytes, ops))
+        say(f"  {name} k={k} call {i} ({what}): equal; kernel {ms:.4f} ms (runs "
+            f"{mine[0]:.4f}-{mine[-1]:.4f})"
+            + (f", plain {plain_ms:.4f} ms" if time_plain else "")
+            + f"; bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}: "
+              f"{rec['bound_bytes']} B, {rec['bound_ops']} ops)")
+        if name == "search_chain2" and k == 0:
+            rec.update(chain2_floor(kern, args))
+        if name not in records:
+            records[name] = rec
+    return records
+
+
+def chain2_floor(kern, args) -> dict:
+    """search_chain2's latency floor: one lane's chain alone (count = 1)
+    on the main path's lattice (L2-resident), then the same lane on the
+    lattice of a 4,096 bp genome (4.2 KB, L1-resident) from [0, n): the
+    same steps and loads, so the difference is the L2 round trip."""
+    import torch
+
+    from bwtpu_torch.config import EngineConfig
+    from bwtpu_torch.index import build_fm_index
+    from bwtpu_torch.kernels import search2
+    from bwtpu_torch.simulate import random_genome
+
+    one = torch.ones_like(args[7])
+    steps = args[3].slen - args[10]
+    small = build_fm_index(random_genome(4096, seed=SEED), EngineConfig(sa_rate=8))
+    lat, C = (torch.from_numpy(a).to(args[0].device) for a in (small.search_lattice, small.C))
+    runs = {"L2": (*args[:7], one, *args[8:]),
+            "L1": (lat, C, small.dollar_row, args[3], torch.zeros_like(args[4]),
+                   torch.full_like(args[5], small.n), args[6], one, *args[8:])}
+    out = {}
+    for where, a in runs.items():
+        want = call_outputs("search_chain2", search2._chain2_plain, a)
+        got = call_outputs("search_chain2", kern, a)
+        require(all(torch.equal(x, y) for x, y in zip(got, want)),
+                f"search_chain2 != plain on one lane ({where} lattice)")
+        targs = fresh_args("search_chain2", a)
+        out[where] = cuda_ms(lambda: kern(*targs))
+    say(f"    one lane's chain (count = 1), {steps} steps: {out['L2']:.4f} ms "
+        f"({out['L2'] / steps * 1e3:.3f} us per step) on the main path's lattice; "
+        f"{out['L1']:.4f} ms ({out['L1'] / steps * 1e3:.3f} us per step) on a 4.2 KB "
+        f"lattice (L1)")
+    return {"one_lane_ms": out["L2"], "one_lane_l1_ms": out["L1"]}
+
+
+RUNS = 3  # timings of each main-path call (the spread)
+
+
+def fresh_args(name: str, args):
+    """search_chain2 writes into its sp and ep: give it clones of them."""
+    if name != "search_chain2":
+        return args
+    return (*args[:8], args[8].clone(), args[9].clone(), args[10])
+
+
+def call_outputs(name: str, fn, args) -> tuple:
+    """fn's outputs on args, as a tuple (search_chain2's: its sp and ep)."""
+    args = fresh_args(name, args)
+    out = fn(*args)
+    if name == "search_chain2":
+        return args[8], args[9]
+    return out if isinstance(out, tuple) else (out,)
+
+
+def chain2_work(args):
+    """(bytes, ops, what) of a search_chain2 call: the plain chain
+    replayed to count the lattice blocks it touches (48 B of each: the
+    checkpoint and BWT words), the lane-steps that load, and the deepest
+    chain (its dependent record loads set the latency floor). Each lane
+    also reads its pattern words (a packed row's words of the slice, or a
+    planes row's active columns), sel, sp0 and ep0, and writes sp and ep."""
+    import torch
+
+    from bwtpu_torch.kernels import search2
+
+    lat, C, dr, pattern, sp0, ep0, sel, count, _, _, d = args
+    lanes = sel[: int(count)].long()
+    codes, amb, lens = search2.lane_planes(pattern, lanes)
+    sp, ep = sp0[lanes], ep0[lanes]
+    blocks, steps = [], torch.zeros((), dtype=torch.int64, device=sp.device)
+    for c, a, active in search2._steps(codes, amb, lens, d):
+        live = active & (a == 0)
+        blocks += [(sp >> 7)[live], (ep >> 7)[live]]
+        steps += live.sum()
+        sp, ep = search2.search_step(lat.index_select(0, sp >> 7),
+                                     lat.index_select(0, ep >> 7), c, a, active, sp, ep,
+                                     C, dr)
+    n = lanes.numel()
+    depth = int((lens.clamp(max=codes.shape[1]) - d).clamp(min=0).max()) if n else 0
+    if isinstance(pattern, search2.Packed):
+        lo, hi = pattern.off >> 4, (pattern.off + pattern.slen - 1 - d) >> 4
+        per_lane = 2 * 4 * (hi - lo + 1)
+    else:
+        per_lane = 2 * 4 * int((lens - d).clamp(min=0).float().mean()) + 4 if n else 0
+    nbytes = (n_unique(torch.cat(blocks)) * 48 if blocks else 0) + n * (per_lane + 4 + 16)
+    return nbytes, int(steps) * 200, f"{n} lanes, chain depth {depth}"
+
+
+def locate_work(args):
+    """(bytes, ops, what) of a locate_walk call: the walk replayed to
+    count the records it touches (68 B: checkpoints, BWT, marks, rank) and
+    the ssa entries it reads; each live lane also reads sel and its row,
+    and every lane writes its position."""
+    import torch
+
+    from bwtpu_torch.kernels import common
+
+    lat, ssa, C, dr, rows, sel, count, sa_rate = args
+    n = int(count)
+    r = rows.index_select(0, sel[:n])
+    done = torch.zeros(n, dtype=torch.bool, device=r.device)
+    blocks, ranks, steps = [], [], 0
+    for _ in range(sa_rate):
+        j = r >> 7
+        m = r & 127
+        blocks.append(j[~done])
+        steps += int((~done).sum())
+        rec = lat.index_select(0, j)
+        bit, inrank = common.mark_bit_and_rank(rec, m)
+        found = (bit == 1) & ~done
+        ranks.append((rec[:, common.MARK_RANK_WORD] + inrank)[found])
+        done = done | found
+        c = common.bwt_code_at(rec, m)
+        lf = (common.select_scalar_table(C, c + 1, 8) + common.select_lane(rec[:, 0:4], c, 4)
+              + common.block_rank(rec[:, 4:12], c, m)
+              - ((c == 0) & ((dr >> 7) == j) & (dr < r)).to(torch.int32))
+        r = torch.where(done, r, lf)
+    Cc = sel.shape[0]
+    nbytes = (n_unique(torch.cat(blocks)) * 68 + n_unique(torch.cat(ranks)) * 4
+              + n * 8 + Cc * 4)
+    return nbytes, steps * 60, f"{Cc} lanes, {n} live, {steps} record loads"
+
+
+def verify_work(args):
+    """(bytes, ops, what) of a verify_nm call: the text rows its in-range
+    candidates load, its per-candidate inputs, nm out."""
+    text_rows, tl, cand, cvalid, rw, ab, lm, lens = args
+    Cc, W = rw.shape
+    ok = cvalid & (cand >= 0) & (cand + lens <= tl)
+    n_ok = int(ok.sum())
+    nbytes = (n_unique((cand[ok] >> 4) >> 3) * text_rows.shape[1] * 4 + Cc * 9
+              + Cc * 3 * W * 4 + Cc * 4)
+    return nbytes, n_ok * W * 12, f"{Cc} candidates, {n_ok} in range"
 
 
 def locv_kernel(genome: str, sa1_dir: str, put, rng, records):
@@ -227,9 +480,9 @@ def locv_kernel(genome: str, sa1_dir: str, put, rng, records):
     import numpy as np
     import torch
 
-    from bwtpu import dna
-    from bwtpu.index import load_index
-    from bwtpu.simulate import simulate_reads
+    from bwtpu_torch import dna
+    from bwtpu_torch.index import load_index
+    from bwtpu_torch.simulate import simulate_reads
     from bwtpu_torch.kernels.verify2 import (build_locv_rows, pack_reads, verify_locv,
                                              verify_locv_plain)
 
@@ -265,7 +518,11 @@ def locv_kernel(genome: str, sa1_dir: str, put, rng, records):
     say(f"  verify_locv  L {L}, locv table {tuple(locv.shape)} ({locv.nbytes / 1e6:.1f} MB), "
         f"{LANES} candidates: equal; kernel {ms:.4f} ms, plain {plain:.4f} ms; "
         f"nm <= 2: {n_hit}")
-    records["verify_locv"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    W = rw.shape[1]
+    nbytes = (n_unique(args[2][args[3]]) * locv.shape[1] * 4 + LANES * 13
+              + LANES * 3 * W * 4 + LANES * 8)
+    records["verify_locv"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                  **bound(nbytes, int(valid.sum()) * W * 12))
     return locv
 
 
@@ -287,12 +544,14 @@ def gather_kernel(locv, latk, rng):
         require(err == 0 and bool(want[0].any()),
                 f"row_gather_sum != plain (Wr {table.shape[1]}): max |diff| {err}")
         ms = cuda_ms(lambda: row_gather_sum(table, idx))
-        plain = cuda_ms(lambda: row_gather_sum_plain(table, idx), reps=5)
+        plain = cuda_ms(lambda: row_gather_sum_plain(table, idx))
         say(f"  row_gather_sum {GATHER_IDX} rows of Wr {table.shape[1]} from "
             f"{table.numel() * 4 / 1e6:.1f} MB: equal; kernel {ms:.4f} ms "
             f"({ms * 1e6 / GATHER_IDX:.3f} ns/row), plain {plain:.4f} ms "
             f"({plain * 1e6 / GATHER_IDX:.3f} ns/row)")
-        rec = rec or dict(max_abs_err=err, ms=ms, plain_ms=plain)
+        Wr = table.shape[1]
+        rec = rec or dict(max_abs_err=err, ms=ms, plain_ms=plain, **bound(
+            n_unique(idx) * Wr * 4 + GATHER_IDX * 4 + Wr * 4, GATHER_IDX * Wr))
     return rec
 
 
@@ -305,7 +564,7 @@ def search_kernels(idx, batch, put):
     import torch
 
     from bwtpu_torch.engine import encode_batch, pick_kmer_depth
-    from bwtpu_torch.kernels.search2 import (_search_ra_chain, _two_gather_search,
+    from bwtpu_torch.kernels.search2 import (Planes, _search_ra_chain, _two_gather_search,
                                              search_chain1, search_chain2,
                                              start_intervals)
 
@@ -329,11 +588,13 @@ def search_kernels(idx, batch, put):
                   int((sp - psp)[ok].abs().max()), int((ep - pep)[ok].abs().max()))
         require(err == 0, f"search_chain1 != plain ({what}): max |diff| {err}")
         ms = cuda_ms(lambda: search_chain1(*args))
-        plain = cuda_ms(lambda: _search_ra_chain(*args), reps=5)
+        plain = cuda_ms(lambda: _search_ra_chain(*args))
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, **bound(*chain1_work(args)))
         say(f"  search_chain1 {what}, {tuple(codes.shape)} lanes x L, d {d}: equal "
             f"(flags on all lanes, sp/ep off the {int(pstrag.sum())} flagged); kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms")
-        records.setdefault("search_chain1", dict(max_abs_err=err, ms=ms, plain_ms=plain))
+            f"{ms:.4f} ms, plain {plain:.4f} ms; bound {rec['bound_ms']:.5f} ms "
+            f"({rec['bound_by']}: {rec['bound_bytes']} B, {rec['bound_ops']} ops)")
+        records.setdefault("search_chain1", rec)
         if what == "k=0 reads":
             # the fixup's shape: 4,096 lanes x 89 steps; a quarter of the
             # lanes start from the depth-4 table's (wide) intervals
@@ -343,20 +604,43 @@ def search_kernels(idx, batch, put):
             wsp, wep = start_intervals(put(idx.kmer_tables[4]), idx.n, codes[:cap],
                                        amb[:cap], lens[:cap], 4)
             wide = torch.arange(cap, device=codes.device) % 4 == 0
-            args2 = (lat, C, dr, codes[:cap], amb[:cap], lens[:cap],
-                     torch.where(wide, wsp, sp0), torch.where(wide, wep, ep0), d)
-            got, want = search_chain2(*args2), _two_gather_search(*args2)
+            sp0 = torch.where(wide, wsp, sp0)
+            ep0 = torch.where(wide, wep, ep0)
+            want = _two_gather_search(lat, C, dr, codes[:cap], amb[:cap], lens[:cap], sp0,
+                                      ep0, d)
+            got = (torch.zeros_like(sp0), torch.zeros_like(ep0))
+            search_chain2(lat, C, dr, Planes(codes[:cap], amb[:cap], lens[:cap]), sp0, ep0,
+                          torch.arange(cap, dtype=torch.int32, device=codes.device),
+                          torch.tensor(cap, dtype=torch.int32, device=codes.device), *got, d)
             torch.cuda.synchronize()
             err2 = max(int((a - b).abs().max()) for a, b in zip(got, want))
             require(err2 == 0, f"search_chain2 != plain: max |diff| {err2}")
-            ms2 = cuda_ms(lambda: search_chain2(*args2))
-            plain2 = cuda_ms(lambda: _two_gather_search(*args2), reps=5)
-            width = (args2[7] - args2[6])[wide]
-            say(f"  search_chain2 {cap} lanes x {codes.shape[1] - d} steps: equal; kernel "
-                f"{ms2:.4f} ms, plain {plain2:.4f} ms; wide starts: median width "
-                f"{int(width.median())}")
-            records["search_chain2"] = dict(max_abs_err=err2, ms=ms2, plain_ms=plain2)
+            width = (ep0 - sp0)[wide]
+            say(f"  search_chain2 (planes) {cap} lanes x {codes.shape[1] - d} steps: equal; "
+                f"wide starts: median width {int(width.median())}")
     return records
+
+
+def chain1_work(args):
+    """(bytes, ops) of a search_chain1 call: the one-record chain replayed
+    to count the lattice blocks it loads (96 B: this block's and the
+    next block's checkpoint and BWT words) until each lane straggles."""
+    import torch
+
+    from bwtpu_torch.kernels import search2
+
+    lat, C, dr, codes, amb, lens, sp, ep, d = args
+    strag = torch.zeros_like(lens, dtype=torch.bool)
+    blocks, steps = [], torch.zeros((), dtype=torch.int64, device=sp.device)
+    for c, a, active in search2._steps(codes, amb, lens, d):
+        live = active & ~strag & (a == 0)
+        blocks.append((sp >> 7)[live])
+        steps += live.sum()
+        sp, ep, s2 = search2.search_step1(lat.index_select(0, sp >> 7), c, a, active, sp,
+                                          ep, C, dr)
+        strag = strag | (s2 == 1)
+    B, Lc = codes.shape
+    return n_unique(torch.cat(blocks)) * 96 + B * (2 * Lc * 4 + 12) + B * 9, int(steps) * 250
 
 
 def run_cli(argv):
@@ -367,8 +651,8 @@ def run_cli(argv):
 
 
 def phase_phix(tmp: str, root: str):
-    from bwtpu.io import read_fasta, write_fastq
-    from bwtpu.simulate import simulate_reads
+    from bwtpu_torch.io import read_fasta, write_fastq
+    from bwtpu_torch.simulate import simulate_reads
 
     say("[4] phiX174 golden SAM through the port CLI on the card")
     fa = os.path.join(root, "data", "phiX174.fa")
@@ -407,27 +691,25 @@ def brute_force(g_t, patterns, masks, k: int):
     return torch.cat(out).numpy()
 
 
-def phase_main(tmp: str, genome: str, fa: str):
+def phase_main(tmp: str, genome: str, fa: str, reads, truth):
     import numpy as np
     import torch
 
-    from bwtpu import dna, sais
-    from bwtpu.index import load_index
-    from bwtpu.io import write_fastq
-    from bwtpu.readblock import read_fastq_stream
-    from bwtpu.results import ContigTable, select_primary_flat
-    from bwtpu.sam import sam_header
-    from bwtpu.samfast import emit_single
-    from bwtpu.simulate import simulate_reads
+    from bwtpu_torch import dna
     from bwtpu_torch.engine import Engine
+    from bwtpu_torch.index import load_index
+    from bwtpu_torch.io import write_fastq
+    from bwtpu_torch.readblock import read_fastq_stream
+    from bwtpu_torch.results import ContigTable, select_primary_flat
+    from bwtpu_torch.sam import sam_header
+    from bwtpu_torch.samfast import emit_single
 
     say(f"[5] slice 1's path at E. coli scale ({len(genome)} bp, {N_READS} reads x 100 bp)")
     idx_dir, fq = (os.path.join(tmp, x) for x in ("ecoli_idx", "reads.fq"))
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as built:
         run_cli(["build-index", fa, idx_dir])  # CLI defaults: sa_rate 8, L 100
-    say(f"  build-index: {time.perf_counter() - t0:.1f} s; SA-IS path: "
-        f"{'native csrc/build/libbwtpu.so' if sais.native_available() else 'NumPy fallback'}; "
+    say(f"  build-index: {time.perf_counter() - t0:.1f} s (native SA-IS); "
         f"{built.getvalue().strip()}")
     shards, manifest = load_index(idx_dir)
     cfg = shards[0].config
@@ -435,10 +717,8 @@ def phase_main(tmp: str, genome: str, fa: str):
         f"max_hits {cfg.max_hits}, max_cand {cfg.max_cand}, min_trips {cfg.min_trips}")
 
     t0 = time.perf_counter()
-    reads, truth = simulate_reads(genome, N_READS, read_len=100, max_mismatches=2,
-                                  seed=SEED + 1)
     write_fastq(fq, reads)
-    say(f"  simulated + wrote FASTQ: {time.perf_counter() - t0:.1f} s")
+    say(f"  wrote FASTQ: {time.perf_counter() - t0:.1f} s")
 
     g_t = torch.from_numpy(dna.encode(genome)).cuda()
     sample = np.sort(np.random.default_rng(SEED + 2).choice(N_READS, N_SAMPLED, replace=False))
@@ -510,6 +790,9 @@ def phase_main(tmp: str, genome: str, fa: str):
             f"{summary['reads_per_s']} reads/s ({summary['wall_s']} s); heals "
             f"{summary['heals']}, overflow_reads {summary['overflow_reads']}, "
             f"compact_overflows {summary['compact_overflows']}; launches {launches}")
+        n_blocks = N_READS // BATCH
+        say(f"  k={k}: launches per block of {BATCH} reads (heals included): "
+            f"{ {n: c / n_blocks for n, c in launches.items()} }")
         stats[k] = launches
     return idx_dir, {name: sum(s[name] for s in stats.values()) for name in stats[0]}, ctx
 
@@ -520,10 +803,10 @@ def phase_read_list(tmp: str, genome: str, idx_dir: str, reads, truth):
     import numpy as np
     import torch
 
-    from bwtpu import dna
-    from bwtpu.index import load_index
-    from bwtpu.io import write_fasta
-    from bwtpu.sam import emit_sam
+    from bwtpu_torch import dna
+    from bwtpu_torch.index import load_index
+    from bwtpu_torch.io import write_fasta
+    from bwtpu_torch.sam import emit_sam
     from bwtpu_torch.engine import Engine
 
     lens = np.array([len(r.seq) for r in reads])
@@ -585,11 +868,11 @@ def phase_locv(tmp: str, p5: dict, idx_dir: str):
     import numpy as np
     import torch
 
-    from bwtpu.index import load_index
-    from bwtpu.readblock import read_fastq_stream
-    from bwtpu.results import ContigTable, select_primary_flat
-    from bwtpu.sam import sam_header
-    from bwtpu.samfast import emit_single
+    from bwtpu_torch.index import load_index
+    from bwtpu_torch.readblock import read_fastq_stream
+    from bwtpu_torch.results import ContigTable, select_primary_flat
+    from bwtpu_torch.sam import sam_header
+    from bwtpu_torch.samfast import emit_single
     from bwtpu_torch.engine import Engine
 
     say(f"[7] bench.py's single-end configuration: sa_rate 1 (locv), autotuned caps, "
@@ -761,7 +1044,7 @@ def brute_force_sample(g_t, reads, sample, k: int) -> set:
     import numpy as np
     import torch
 
-    from bwtpu import dna
+    from bwtpu_torch import dna
 
     by_len: dict = {}
     for i in sample:
@@ -783,7 +1066,7 @@ def smoke_genome() -> str:
     """Random E. coli-size genome with one dispersed repeat family."""
     import numpy as np
 
-    from bwtpu.simulate import ECOLI_SCALE, random_genome
+    from bwtpu_torch.simulate import ECOLI_SCALE, random_genome
 
     g = bytearray(random_genome(ECOLI_SCALE, seed=SEED), "ascii")
     rng = np.random.default_rng(SEED + 4)
@@ -797,8 +1080,8 @@ def read_list_reads(genome: str):
     mismatches), shuffled with the seed; returns (reads, truth)."""
     import numpy as np
 
-    from bwtpu.io import Read
-    from bwtpu.simulate import simulate_reads
+    from bwtpu_torch.io import Read
+    from bwtpu_torch.simulate import simulate_reads
 
     rng = np.random.default_rng(SEED + 5)
     counts = np.bincount(rng.integers(50, 101, size=N_READS), minlength=101)
@@ -823,7 +1106,8 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     import bwtpu_torch  # noqa: F401  (fails outside a checkout of the repo)
-    from bwtpu.io import write_fasta
+    from bwtpu_torch.io import write_fasta
+    from bwtpu_torch.simulate import simulate_reads
 
     t_all = time.perf_counter()
     name, smi = phase_card()
@@ -831,13 +1115,16 @@ def main() -> int:
     genome = smoke_genome()
     t0 = time.perf_counter()
     list_reads, list_truth = read_list_reads(genome)
-    say(f"  simulated the Read-list reads: {time.perf_counter() - t0:.1f} s")
+    reads, truth = simulate_reads(genome, N_READS, read_len=100, max_mismatches=2,
+                                  seed=SEED + 1)
+    say(f"  simulated the Read-list reads and phase 5's reads: "
+        f"{time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory(prefix="bwtpu_torch_smoke_") as tmp:
         fa = os.path.join(tmp, "ecoli.fa")
         write_fasta(fa, [("ecoli_sim", genome)])
-        records, sa1_dir = phase_kernels(tmp, genome, fa, list_reads)
+        records, sa1_dir = phase_kernels(tmp, genome, fa, list_reads, reads[:BATCH])
         phase_phix(tmp, root)
-        idx_dir, launches, p5 = phase_main(tmp, genome, fa)
+        idx_dir, launches, p5 = phase_main(tmp, genome, fa, reads, truth)
         list_launches = phase_read_list(tmp, genome, idx_dir, list_reads, list_truth)
         locv_launches = phase_locv(tmp, p5, sa1_dir)
     ab_launches = phase_gather_ab()
@@ -848,7 +1135,8 @@ def main() -> int:
     say(f"[9] all phases passed in {time.perf_counter() - t_all:.1f} s on {smi}")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(c[k] for c in paths.values()), **records[k]}
+         "launches": sum(c[k] for c in paths.values()), **records[k],
+         "library_ms": None}
         for k, (src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -136,9 +136,9 @@ def _read_list(genome, shards, contigs, smi):
     import numpy as np
     import torch
 
-    from bwtpu.io import Read
-    from bwtpu.sam import emit_sam
-    from bwtpu.simulate import simulate_reads
+    from bwtpu_torch.io import Read
+    from bwtpu_torch.sam import emit_sam
+    from bwtpu_torch.simulate import simulate_reads
     from bwtpu_torch.engine import Engine
 
     B = BATCH
@@ -250,7 +250,7 @@ def _block_passes(eng, blocks, k, smi, tiered=False, **tags):
 def _build_index(fa, idx, *flags):
     """`python -m bwtpu_torch.cli build-index` with its output swallowed;
     returns (shards, manifest)."""
-    from bwtpu.index import load_index
+    from bwtpu_torch.index import load_index
     from bwtpu_torch import cli as tcli
 
     with contextlib.redirect_stdout(io.StringIO()):
@@ -284,9 +284,9 @@ def main(argv=None) -> int:
         print("torch_stage_profile: no CUDA device", file=sys.stderr)
         return 2
 
-    from bwtpu.io import write_fasta
-    from bwtpu.readblock import ReadBlock
-    from bwtpu.simulate import ECOLI_SCALE, random_genome, simulate_reads
+    from bwtpu_torch.io import write_fasta
+    from bwtpu_torch.readblock import ReadBlock
+    from bwtpu_torch.simulate import ECOLI_SCALE, random_genome, simulate_reads
     from bwtpu_torch.engine import Engine
 
     smi = subprocess.run(

@@ -93,6 +93,37 @@ def test_truncation_marks_match_bwtpu():
     assert et.stats.compact_overflows == ej.stats.compact_overflows
 
 
+@pytest.mark.parametrize("k,max_heals", [(0, 0), (2, 0), (2, 2)])
+def test_finisher_capacity_matches_bwtpu(k, max_heals, monkeypatch):
+    """A tandem-repeat genome leaves more unfinished lanes than the
+    finisher's cap (max(256, B2 // 64) lanes of B2 = 800 read-strand
+    rows): the lanes past it are forced empty and flagged, and the block
+    heals or marks the reads truncated, as in bwtpu. 60 bp reads (not a
+    multiple of 16) with N bases; at k = 2 seed slices at off > 0."""
+    from bwtpu_torch.kernels import searchk
+
+    flagged = []
+    fixup = searchk._fixup_stragglers_packed
+
+    def counting(*args, cap):
+        flagged.append((int(args[11].sum()), cap))  # unfinished lanes
+        return fixup(*args, cap=cap)
+
+    monkeypatch.setattr(searchk, "_fixup_stragglers_packed", counting)
+    genome = adversarial_genome(20000, "tandem", seed=11)
+    cfg = EngineConfig(sa_rate=4, max_hits=8, max_cand=8, read_len=60, max_heals=max_heals)
+    idx = build_fm_index(genome, cfg)
+    reads, _ = simulate_reads(genome, 400, read_len=60, max_mismatches=k, n_frac=0.01,
+                              seed=12)
+    blk = ReadBlock.from_reads(reads)
+    ej, et = je.Engine([idx]), te.Engine([idx], device="cpu")
+    _assert_flat_equal(_run(et, blk, k), _run(ej, blk, k))
+    assert et.stats.heals == ej.stats.heals
+    assert et.stats.truncated_reads == ej.stats.truncated_reads
+    assert any(n > cap for n, cap in flagged)
+    assert et.stats.heals > 0 if max_heals else et.stats.truncated_reads > 0
+
+
 def test_engine_refuses_uncovered_options():
     """What the port still refuses: block reads longer than read_len
     (as bwtpu does) and several shards (slice 5). Patterns shorter than

@@ -1,6 +1,6 @@
 """bwtpu_torch's CUDA kernels against their plain-torch versions on the
 card (marked `gpu`; each test skips without a CUDA device). This file
-imports no jax, so it runs on a machine that has none:
+imports neither jax nor bwtpu, so it runs on a machine that has no jax:
 
     BWTPU_TEST_TPU=1 python -m pytest -o addopts="" -m gpu tests/test_torch_gpu.py
 
@@ -11,13 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from bwtpu import dna
-from bwtpu.config import EngineConfig
-from bwtpu.index import build_fm_index
-from bwtpu.simulate import random_genome, simulate_reads
-from bwtpu_torch.kernels.locate import locate_rows, locate_walk
+from bwtpu_torch import dna
+from bwtpu_torch.config import EngineConfig
+from bwtpu_torch.index import build_fm_index
+from bwtpu_torch.kernels import search2
+from bwtpu_torch.kernels.locate import _locate_plain, locate_walk
 from bwtpu_torch.kernels.verify2 import (build_text_rows, pack_reads, verify_nm,
                                          verify_packed)
+from bwtpu_torch.simulate import random_genome, simulate_reads
 
 GENOME = random_genome(200000, seed=71)
 L = 100
@@ -34,20 +35,32 @@ def _t(a, dev):
     return torch.from_numpy(np.array(a)).to(dev)
 
 
+def _sel(n_rows: int, cap: int, count: int, rng, dev):
+    """(sel int32[cap], count int32 0-dim) as compact / compact_counts hand
+    them over: `count` distinct rows first, 0 beyond."""
+    sel = np.zeros(cap, np.int32)
+    sel[:count] = rng.choice(n_rows, count, replace=False)
+    return _t(sel, dev), torch.tensor(count, dtype=torch.int32, device=dev)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("sa_rate", [4, 8, 16])
-def test_locate_walk_kernel_matches_plain(cuda, sa_rate):
+@pytest.mark.parametrize("count", [0, 45000, 50000])
+def test_locate_walk_kernel_matches_plain(cuda, sa_rate, count):
+    """The compacted form: lanes j < count walk rows[sel[j]], the rest
+    report -1 (count = 0, a partial count, count = cap)."""
     idx = build_fm_index(GENOME, EngineConfig(sa_rate=sa_rate))
-    rng = np.random.default_rng(sa_rate)
-    rows = rng.integers(0, idx.n, size=50000).astype(np.int32)
+    rng = np.random.default_rng(sa_rate + count)
+    rows = rng.integers(0, idx.n, size=60000).astype(np.int32)
     rows[:4] = [idx.dollar_row, idx.n - 1, 0, 1]
-    valid = rng.random(rows.size) < 0.9
+    sel, cnt = _sel(len(rows), 50000, count, rng, cuda)
     args = [_t(a, cuda) for a in (idx.search_lattice, idx.ssa, idx.C)]
     for trips in (sa_rate, 3):  # 3 trips leaves lanes unfound: ssa[0] + 0
-        got = locate_walk(*args, idx.dollar_row, _t(rows, cuda), _t(valid, cuda), trips)
-        want = locate_rows(*args, idx.dollar_row, _t(rows, cuda), _t(valid, cuda), trips)
+        got = locate_walk(*args, idx.dollar_row, _t(rows, cuda), sel, cnt, trips)
+        want = _locate_plain(*args, idx.dollar_row, _t(rows, cuda), sel, cnt, trips)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+        assert (got[count:] == -1).all() and (got[:count] >= 0).all()
 
 
 @pytest.mark.gpu
@@ -82,7 +95,7 @@ def _chain_inputs(idx, dev, d: int, B: int, seed: int):
     """Right-aligned mixed-length patterns as the Read-list path builds
     them (genome substrings of length 0 or >= d with a few substitutions
     and N bases) and their start intervals."""
-    from bwtpu.io import Read
+    from bwtpu_torch.io import Read
     from bwtpu_torch.engine import encode_batch
     from bwtpu_torch.kernels.search2 import start_intervals
 
@@ -130,28 +143,95 @@ def test_search_chain1_kernel_matches_plain(cuda, d):
         assert torch.equal(a.cpu(), b)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("d", [0, 4, 8])
-def test_search_chain2_kernel_matches_plain(cuda, d):
-    from bwtpu_torch.kernels.search2 import _two_gather_search, search_chain2
+def _wide_starts(idx, sp0, ep0, rng, dev):
+    """A third of the lanes start from random wide intervals: any [sp, ep)
+    within [0, n] is a valid start of the two-record chain."""
+    B = sp0.shape[0]
+    wide = torch.from_numpy(rng.random(B) < 0.3).to(dev)
+    sp_w = _t(rng.integers(0, idx.n, size=B).astype(np.int32), dev)
+    ep_w = torch.minimum(sp_w + _t(rng.integers(0, 5000, size=B).astype(np.int32), dev),
+                         torch.tensor(idx.n, device=dev))
+    return torch.where(wide, sp_w, sp0), torch.where(wide, ep_w, ep0).to(torch.int32)
 
+
+def _finish_both(args, B, dev, rng):
+    """search_chain2 and _chain2_plain on the same arguments, each writing
+    into its own copy of the same garbage sp and ep; returns both (sp, ep)
+    pairs."""
+    garbage = [_t(rng.integers(0, 1 << 20, size=B).astype(np.int32), dev) for _ in "se"]
+    got = [g.clone() for g in garbage]
+    want = [g.clone() for g in garbage]
+    lat, C, dr, pattern, sp0, ep0, sel, count, d = args
+    search2.search_chain2(lat, C, dr, pattern, sp0, ep0, sel, count, *got, d)
+    search2._chain2_plain(lat, C, dr, pattern, sp0, ep0, sel, count, *want, d)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,count", [(0, 3000), (4, 1700), (8, 0)])
+def test_search_chain2_planes_kernel_matches_plain(cuda, d, count):
+    """The 1-step path's finisher: right-aligned int32 planes of mixed
+    lengths (with N bases and empty lanes), lanes sel[j] for j < count,
+    written in place; lanes not selected keep their values."""
     idx = build_fm_index(GENOME, EngineConfig(sa_rate=8))
     lat, C = _t(idx.search_lattice, cuda), _t(idx.C, cuda)
     codes, amb, lens, sp0, ep0 = _chain_inputs(idx, cuda, d, 3000, seed=d + 1)
-    # wide intervals as well: any [sp, ep) within [0, n] is a valid start
+    B = codes.shape[0]  # read-strand rows
     rng = np.random.default_rng(d)
-    wide = torch.from_numpy(rng.random(len(lens)) < 0.3).to(cuda)
-    sp_w = _t(rng.integers(0, idx.n, size=len(lens)).astype(np.int32), cuda)
-    ep_w = torch.minimum(sp_w + _t(rng.integers(0, 5000, size=len(lens)).astype(np.int32),
-                                   cuda), torch.tensor(idx.n, device=cuda))
-    sp0 = torch.where(wide, sp_w, sp0)
-    ep0 = torch.where(wide, ep_w, ep0).to(torch.int32)
-    args = (lat, C, idx.dollar_row, codes, amb, lens, sp0, ep0, d)
-    got = search_chain2(*args)
-    want = _two_gather_search(*args)
-    torch.cuda.synchronize()
+    sp0, ep0 = _wide_starts(idx, sp0, ep0, rng, cuda)
+    sel, cnt = _sel(B, B, count, rng, cuda)
+    args = (lat, C, idx.dollar_row, search2.Planes(codes, amb, lens), sp0, ep0, sel, cnt, d)
+    got, want = _finish_both(args, B, cuda, rng)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    if count:
+        full = search2._two_gather_search(lat, C, idx.dollar_row, codes, amb, lens, sp0,
+                                          ep0, d)
+        lanes = sel[:count].long()
+        assert torch.equal(got[0][lanes], full[0][lanes])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,off,slen,d,count", [
+    (100, 0, 100, 8, 512),    # the k = 0 finisher: full reads, cap 512
+    (100, 33, 34, 8, 300),    # a k = 2 seed slice at off > 0
+    (60, 7, 37, 4, 100),      # L and slen not multiples of 16
+    (300, 0, 300, 0, 64),     # past the 16-word register window
+    (100, 0, 100, 8, 0),      # nothing flagged
+])
+def test_search_chain2_packed_kernel_matches_plain(cuda, L, off, slen, d, count):
+    """The multi-step path's finisher: bases [off, off + slen) of 2-bit
+    packed rows (with substitutions and N bases), read straight from the
+    rows; narrow starts from the k-mer table and wide random ones."""
+    idx = build_fm_index(GENOME, EngineConfig(sa_rate=8))
+    lat, C = _t(idx.search_lattice, cuda), _t(idx.C, cuda)
+    rng = np.random.default_rng(L + off + count)
+    B = 4 * max(count, 128)
+    g = dna.encode(GENOME)
+    starts = rng.integers(0, len(g) - L, size=B)
+    codes = g[starts[:, None] + np.arange(L)].astype(np.int32)
+    flip = rng.random((B, L)) < 0.01
+    codes[flip] = (codes[flip] + 1) % 4
+    amb = (rng.random((B, L)) < 0.005).astype(np.int32)
+    codes[amb == 1] = 0
+    words, amb_bits, _ = pack_reads(codes, amb, np.full(B, L, np.int32))
+    pattern = search2.Packed(_t(words, cuda), _t(amb_bits, cuda), off, slen)
+    sl = slice(off, off + slen)
+    ra = _t(codes[:, sl], cuda), _t(amb[:, sl], cuda), _t(np.full(B, slen, np.int32), cuda)
+    kt = _t(idx.kmer_tables[d], cuda) if d else None
+    sp0, ep0 = _wide_starts(idx, *search2.start_intervals(kt, idx.n, *ra, d), rng, cuda)
+    sel, cnt = _sel(B, max(count, 1), count, rng, cuda)
+    args = (lat, C, idx.dollar_row, pattern, sp0, ep0, sel, cnt, d)
+    got, want = _finish_both(args, B, cuda, rng)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if count:
+        lanes = sel[:count].long()
+        full = search2._two_gather_search(lat, C, idx.dollar_row, *ra, sp0, ep0, d)
+        assert torch.equal(got[1][lanes], full[1][lanes])
+    if count and slen <= 100:  # some selected lanes still match somewhere
+        assert bool((want[1][lanes] > want[0][lanes]).any())
 
 
 @pytest.mark.gpu

@@ -22,6 +22,12 @@ from bwtpu.simulate import random_genome
 torch.set_num_threads(1)
 
 
+def _hits(lists):
+    """Per-read hit lists as (nm, strand, pos) tuples: each package has
+    its own Hit class, so the lists compare by value."""
+    return [[(h.nm, h.strand, h.pos) for h in hs] for hs in lists]
+
+
 def test_constants_equal():
     assert tverify2.NM_INVALID == jverify2.NM_INVALID
     assert tverify2.TEXT_ROW_STRIDE == jverify2.TEXT_ROW_STRIDE
@@ -143,11 +149,11 @@ def test_dense_assembly_equal():
         for got, want in zip(te.dense_to_columns(pos, m, valid),
                              je.dense_to_columns(pos, m, valid)):
             np.testing.assert_array_equal(got, want)
-        assert (te.assemble_hits(reads, B, pos, m, valid, [2000], [7])
-                == je.assemble_hits(reads, B, pos, m, valid, [2000], [7]))
+        assert (_hits(te.assemble_hits(reads, B, pos, m, valid, [2000], [7]))
+                == _hits(je.assemble_hits(reads, B, pos, m, valid, [2000], [7])))
     comp = [(pos.reshape(-1), nm.reshape(-1), np.arange(2 * B * H, dtype=np.int32), 150)]
-    assert (te.assemble_hits_compact(reads, B, comp, 2, H, [2000], [0])
-            == je.assemble_hits_compact(reads, B, comp, 2, H, [2000], [0]))
+    assert (_hits(te.assemble_hits_compact(reads, B, comp, 2, H, [2000], [0]))
+            == _hits(je.assemble_hits_compact(reads, B, comp, 2, H, [2000], [0])))
 
 
 def test_compact_to_columns_equal():

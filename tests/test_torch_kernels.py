@@ -130,13 +130,42 @@ def test_verify_packed_matches_bwtpu(indexes, sa_rate, backend):
     assert (got == 255).any() and (got <= 2).any() and (got[2::8] != 255).any()
 
 
+def _sel_count(n_rows, cap, count, seed):
+    """(sel int32[cap], count): distinct rows for the first `count` slots
+    and row 0 beyond, as compact_counts hands them over."""
+    rng = np.random.default_rng(seed)
+    sel = np.zeros(cap, np.int32)
+    sel[:count] = rng.choice(n_rows, count, replace=False)
+    return _t(sel), torch.tensor(count, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("count", [0, 150, 300])
+def test_locate_walk_matches_bwtpu(indexes, backend, count):
+    """locate_walk's argument form (the flat rows, sel and a device count)
+    against bwtpu's locate_rows on the gathered rows: count = 0, a
+    partial count and count = cap."""
+    idx, shard = indexes[8]
+    rows, _ = _locate_inputs(idx, n=500, seed=count)
+    sel, cnt = _sel_count(len(rows), 300, count, seed=count)
+    valid = np.arange(300) < count
+    want = np.asarray(j_locate_rows(shard.lattice, shard.ssa, shard.C, shard.dollar_row,
+                                    jnp.asarray(rows[sel.numpy()]), jnp.asarray(valid), 8,
+                                    backend=backend))
+    got = locate_walk(*_locate_args(idx), _t(rows), sel, cnt, 8).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[count:] == -1).all()
+
+
 def test_wrappers_take_the_plain_version_on_cpu(indexes):
     idx, _ = indexes[8]
-    rows, valid = _locate_inputs(idx)
+    rows, _ = _locate_inputs(idx)
+    sel, cnt = _sel_count(len(rows), 200, 170, seed=1)
     before = locate_walk.launches
     np.testing.assert_array_equal(
-        locate_walk(*_locate_args(idx), _t(rows), _t(valid), 8).numpy(),
-        locate_rows(*_locate_args(idx), _t(rows), _t(valid), 8).numpy())
+        locate_walk(*_locate_args(idx), _t(rows), sel, cnt, 8).numpy(),
+        locate_rows(*_locate_args(idx), _t(rows).index_select(0, sel),
+                    torch.arange(200) < 170, 8).numpy())
     assert locate_walk.launches == before
     cand, cvalid, rw, ab, lm, lens = _verify_inputs(idx)
     from bwtpu_torch.kernels.verify2 import build_text_rows
@@ -150,9 +179,10 @@ def test_wrappers_take_the_plain_version_on_cpu(indexes):
     idx1 = build_fm_index(GENOME, EngineConfig(sa_rate=1, read_len=READ_LEN))
     shard1 = jax.tree.map(lambda x: x[0], upload_index([idx1]).shard)
     before = locate_walk.launches
-    got = locate_walk(*_locate_args(idx1), _t(rows), _t(valid), 1).numpy()
+    got = locate_walk(*_locate_args(idx1), _t(rows), sel, cnt, 1).numpy()
     assert locate_walk.launches == before
-    np.testing.assert_array_equal(got, np.where(valid, idx1.ssa[rows], -1))
+    np.testing.assert_array_equal(got, np.where(np.arange(200) < 170,
+                                                idx1.ssa[rows[sel.numpy()]], -1))
     np.testing.assert_array_equal(got, np.asarray(j_locate_rows(
-        shard1.lattice, shard1.ssa, shard1.C, shard1.dollar_row, jnp.asarray(rows),
-        jnp.asarray(valid), 1)))
+        shard1.lattice, shard1.ssa, shard1.C, shard1.dollar_row,
+        jnp.asarray(rows[sel.numpy()]), jnp.asarray(np.arange(200) < 170), 1)))

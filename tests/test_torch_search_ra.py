@@ -129,11 +129,18 @@ def test_two_gather_search_matches_bwtpu(genomes, kind, d):
                                        jnp.asarray(codes), jnp.asarray(amb),
                                        jnp.asarray(lens), jnp.asarray(sp0),
                                        jnp.asarray(ep0), d)
-    for fn in (tsearch2._two_gather_search, tsearch2.search_chain2):
-        got = fn(_t(idx.search_lattice), _t(idx.C), idx.dollar_row, _t(codes), _t(amb),
-                 _t(lens), _t(sp0), _t(ep0), d)
-        for name, a, b in zip(("sp", "ep"), got, want):
-            _eq(a, b, f"{fn.__name__} {name}")
+    args = (_t(idx.search_lattice), _t(idx.C), idx.dollar_row)
+    got = tsearch2._two_gather_search(*args, _t(codes), _t(amb), _t(lens), _t(sp0),
+                                      _t(ep0), d)
+    for name, a, b in zip(("sp", "ep"), got, want):
+        _eq(a, b, f"_two_gather_search {name}")
+    # the wrapper over every lane, written in place
+    sp, ep = _t(sp0), _t(ep0)
+    tsearch2.search_chain2(*args, tsearch2.Planes(_t(codes), _t(amb), _t(lens)), _t(sp0),
+                           _t(ep0), torch.arange(300, dtype=torch.int32),
+                           torch.tensor(300, dtype=torch.int32), sp, ep, d)
+    for name, a, b in zip(("sp", "ep"), (sp, ep), want):
+        _eq(a, b, f"search_chain2 {name}")
 
 
 @pytest.mark.parametrize("backend", ["jnp", "pallas"])
@@ -177,6 +184,83 @@ def test_backward_search_ra_matches_bwtpu(genomes, backend, kind, d, cap_scale, 
         assert (n_strag > cap) == (cap_scale == 1)
 
 
+def _packed_rows(genome: str, B: int, L: int, seed: int):
+    """2-bit packed rows (words, ambiguity bits) of genome substrings of
+    length L with a few substitutions and ambiguous bases (prep.py's
+    layout, as device_prep_packed holds them)."""
+    from bwtpu_torch.kernels.verify2 import pack_reads
+
+    rng = np.random.default_rng(seed)
+    g = dna.encode(genome)
+    codes = np.zeros((B, L), np.int32)
+    for i in range(B):
+        start = rng.integers(0, len(g) - L + 1)
+        codes[i] = g[start:start + L]
+    flip = rng.random((B, L)) < 0.01
+    codes[flip] = (codes[flip] + 1) % 4
+    amb = (rng.random((B, L)) < 0.004).astype(np.int32)
+    words, amb_bits, _ = pack_reads(codes, amb, np.full(B, L, np.int32))
+    return words, amb_bits
+
+
+# the finisher's count against its cap: none flagged, exactly cap flagged,
+# more than cap flagged (those past the cap are forced empty and flagged)
+FLAGGED = {"count0": lambda cap: 0, "count_cap": lambda cap: cap,
+           "over_cap": lambda cap: cap + 37}
+
+
+@pytest.mark.parametrize("case", sorted(FLAGGED))
+@pytest.mark.parametrize("off,slen,d", [(0, 60, 4), (7, 37, 4), (23, 19, 0)])
+def test_packed_finisher_matches_bwtpu(genomes, case, off, slen, d):
+    """_fixup_stragglers_packed (search_chain2 on Packed rows, sel and a
+    device count) against bwtpu's: slices at off > 0 and of lengths that
+    are not multiples of 16, ambiguous bases, wide and narrow starts."""
+    g, idx, shard = genomes["tandem"]
+    B, L, cap = 400, 60, 128
+    words, amb_bits = _packed_rows(g, B, L, seed=off + slen)
+    rng = np.random.default_rng(slen)
+    sp0 = rng.integers(0, idx.n, size=B).astype(np.int32)
+    ep0 = np.minimum(sp0 + rng.integers(0, 3000, size=B), idx.n).astype(np.int32)
+    sp = rng.integers(0, idx.n, size=B).astype(np.int32)  # the loop's garbage
+    ep = rng.integers(0, idx.n, size=B).astype(np.int32)
+    strag = np.zeros(B, bool)
+    strag[rng.choice(B, FLAGGED[case](cap), replace=False)] = True
+    want = jsearch2._fixup_stragglers_packed(
+        shard.lattice, shard.C, shard.dollar_row, jnp.asarray(words), jnp.asarray(amb_bits),
+        off, slen, jnp.asarray(sp0), jnp.asarray(ep0), jnp.asarray(sp), jnp.asarray(ep),
+        jnp.asarray(strag), d, cap=cap)
+    got = tsearch2._fixup_stragglers_packed(
+        _t(idx.search_lattice), _t(idx.C), idx.dollar_row, _t(words), _t(amb_bits), off,
+        slen, _t(sp0), _t(ep0), _t(sp), _t(ep), _t(strag), d, cap)
+    for name, a, b in zip(("sp", "ep", "over_lane"), got, want):
+        _eq(a, b, name)
+    assert int(got[2].sum()) == max(0, int(strag.sum()) - cap)
+
+
+@pytest.mark.parametrize("case", sorted(FLAGGED))
+def test_planes_finisher_matches_bwtpu(genomes, case):
+    """_fixup_stragglers (search_chain2 on right-aligned Planes of mixed
+    lengths, L = 40) against bwtpu's."""
+    g, idx, shard = genomes["random"]
+    B, cap, d = 300, 96, 4
+    codes, amb, lens = _patterns(g, B, d, seed=cap)
+    rng = np.random.default_rng(cap)
+    sp0, ep0 = (x.numpy() for x in _starts(idx, d, codes, amb, lens))
+    sp = rng.integers(0, idx.n, size=B).astype(np.int32)
+    ep = rng.integers(0, idx.n, size=B).astype(np.int32)
+    strag = np.zeros(B, bool)
+    strag[rng.choice(B, FLAGGED[case](cap), replace=False)] = True
+    want = jsearch2._fixup_stragglers(
+        shard.lattice, shard.C, shard.dollar_row, None, jnp.asarray(codes),
+        jnp.asarray(amb), jnp.asarray(lens), jnp.asarray(sp0), jnp.asarray(ep0),
+        jnp.asarray(sp), jnp.asarray(ep), jnp.asarray(strag), d, cap=cap)
+    got = tsearch2._fixup_stragglers(
+        _t(idx.search_lattice), _t(idx.C), idx.dollar_row, _t(codes), _t(amb), _t(lens),
+        _t(sp0), _t(ep0), _t(sp), _t(ep), _t(strag), d, cap)
+    for name, a, b in zip(("sp", "ep", "over_lane"), got, want):
+        _eq(a, b, name)
+
+
 def _starts(idx, d, codes, amb, lens):
     """(sp0, ep0) as backward_search_ra computes them."""
     return tsearch2.start_intervals(_t(idx.kmer_tables[d]) if d else None, idx.n,
@@ -191,12 +275,17 @@ def test_chain_wrappers_take_the_plain_version_on_cpu(genomes):
     before = (tsearch2.search_chain1.launches, tsearch2.search_chain2.launches)
     for a, b in zip(tsearch2.search_chain1(*args), tsearch2._search_ra_chain(*args)):
         _eq(a, b)
-    for a, b in zip(tsearch2.search_chain2(*args), tsearch2._two_gather_search(*args)):
+    sel = torch.arange(0, 200, 3, dtype=torch.int32)
+    count = torch.tensor(50, dtype=torch.int32)
+    fin = (args[:3], tsearch2.Planes(*args[3:6]), *args[6:8], sel, count)
+    got, want = [args[6].clone(), args[7].clone()], [args[6].clone(), args[7].clone()]
+    tsearch2.search_chain2(*fin[0], *fin[1:], *got, 4)
+    tsearch2._chain2_plain(*fin[0], *fin[1:], *want, 4)
+    for a, b in zip(got, want):
         _eq(a, b)
     assert (tsearch2.search_chain1.launches, tsearch2.search_chain2.launches) == before
     with pytest.raises(ValueError, match="no kernel for device meta"):
-        tsearch2.search_chain2(*(a.to("meta") if isinstance(a, torch.Tensor) else a
-                                 for a in args))
+        tsearch2.search_chain2(*fin[0], *fin[1:], *(x.to("meta") for x in got), 4)
 
 
 @pytest.mark.parametrize("L,k", [(16, 0), (37, 2), (60, 1)])
