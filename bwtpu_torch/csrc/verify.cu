@@ -1,12 +1,35 @@
 // Candidate mismatch counts: one thread per candidate.
 //
 // verify_nm_kernel (sa_rate > 1, or locv off) replaces
-// bwtpu/kernels/verify2.py::verify_packed: the stride-8 text-row gather
-// and word funnel (verify2.py:181-197) plus
-// bwtpu/kernels/pallas_step.py::verify_nm_pallas (_verify_kernel). What
-// bounds it on an H100: one dependent load of W+1 text words from a 64 B
-// text row (row w>>3, words [w&7, (w&7)+W]) per candidate, plus 3 x W
-// read-side words.
+// bwtpu/kernels/pallas_step.py::verify_nm_pallas (_verify_kernel), the
+// stride-8 text-row gather and word funnel of
+// bwtpu/kernels/verify2.py::verify_packed (verify2.py:181-197) and the
+// per-candidate row take around them in bwtpu/engine.py:523-541, 560-566.
+// It takes the compacted candidates as locate left them (slot j: position
+// spos[j] of lane sel[j] // max_loc, j < *count, count on the device) and
+// the read-level rows, and computes each candidate's read row, seed offset
+// and validity itself, so nothing is gathered per candidate into device
+// memory. What bounds it on an H100: per candidate, three dependent rounds
+// of loads (sel; its seed offset; its text row) and the 3 x W read-side
+// words, which neighbouring candidates of one read share (they are
+// neighbours in compact order, so those rows come from L1 or L2). So:
+//   - W is a template parameter (instances for W = 1 .. kMaxW, the wrapper
+//     dispatches): the window loop unrolls and every load of a candidate is
+//     issued before the first XOR;
+//   - the text-row load needs only the candidate's start (not the read's
+//     length) to stay in range, so it is issued together with the read's
+//     rows and length; the length test comes after;
+//   - a 64 B text row (row width a multiple of 4 words) is loaded as 16 B
+//     vectors and the window [w & 7, (w & 7) + W] selected in registers by a
+//     three-stage funnel; other row widths load their W + 1 words one by
+//     one;
+//   - the read planes may have any row stride (0 for the block path's one
+//     shared length mask), so no contiguous copy is made for the kernel.
+// Measured on an H100 and not kept: issuing the read's rows together with
+// the seed offset (no faster), loading from the located position alone
+// the two text rows that hold every window of a seed offset up to 112
+// (slower), and one fused 128 B read table in place of the three planes
+// (no faster, and one more launch to build it).
 //
 // verify_locv_kernel (sa_rate == 1 with the fused locate+verify table)
 // replaces the row take, SA mask, word funnel and popcount of
@@ -19,7 +42,7 @@
 // table of n rows (~300 MB at E. coli scale), plus 3 x W read-side words.
 //
 // In both, the row load, the funnel and the popcount are fused, so nothing
-// between them goes to device memory; the popcount is verify.cuh's.
+// between them goes to device memory.
 
 #include "verify.cuh"
 
@@ -28,33 +51,107 @@ namespace {
 using bwtpu::kNmInvalid;
 using bwtpu::window_nm;
 
+constexpr int kThreads = 256;
+constexpr int kMaxW = 20;  // widest read with a verify_nm instance: 320 bases
+
+// The read-level row of one candidate: three W-word planes with their row
+// strides in words (the layout of verify2.pack_reads).
+struct ReadRows {
+  const int* rw;
+  const int* ab;
+  const int* lm;
+  long long s_rw, s_ab, s_lm;
+};
+
+// x[q] = x[q + K] for every q when `on`: one stage of the window
+// select. K is a template parameter so that every index is a constant and
+// x stays in registers (a loop over K put x in local memory).
+template <int K, int N>
+__device__ __forceinline__ void shift_if(uint32_t (&x)[N], bool on) {
+#pragma unroll
+  for (int q = 0; q + K < N; ++q) x[q] = on ? x[q + K] : x[q];
+}
+
+template <int W, bool kVecRows>
 __global__ void verify_nm_kernel(const int* __restrict__ text_rows, int row_width,
-                                 long long text_len,
-                                 const int* __restrict__ cand,
-                                 const bool* __restrict__ cvalid,
-                                 const int* __restrict__ read_words,
-                                 const int* __restrict__ amb_bits,
-                                 const int* __restrict__ len_mask,
-                                 const int* __restrict__ lens, int n_cand,
-                                 int W, int* __restrict__ nm) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_cand) return;
-  const int c = cand[i];
-  if (!(cvalid[i] && c >= 0 && (long long)c + lens[i] <= text_len)) {
-    nm[i] = kNmInvalid;
+                                 long long text_len, const int* __restrict__ spos,
+                                 const int* __restrict__ sel, const int* __restrict__ count,
+                                 const int* __restrict__ seed_off, ReadRows rr,
+                                 const int* __restrict__ lens, int max_loc, int n_slots,
+                                 int cap, int* __restrict__ cand_out,
+                                 int* __restrict__ nm_out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= cap) return;
+  const int lane = __ldg(sel + j) / max_loc;  // sel names a lane on every slot
+  const int b = lane / n_slots;
+  const int sp = __ldg(spos + j);
+  const bool live = j < __ldg(count) && sp >= 0;
+  const int c = sp - __ldg(seed_off + lane);
+  cand_out[j] = c;
+  // c < text_len keeps the text row in range (the wrapper checks that the
+  // rows cover text_len); the read's length is tested after the loads
+  if (!(live && c >= 0 && (long long)c < text_len)) {
+    nm_out[j] = kNmInvalid;
     return;
   }
+  uint32_t rw[W], ab[W], lm[W];
+#pragma unroll
+  for (int q = 0; q < W; ++q) {
+    rw[q] = (uint32_t)__ldg(rr.rw + (size_t)b * rr.s_rw + q);
+    ab[q] = (uint32_t)__ldg(rr.ab + (size_t)b * rr.s_ab + q);
+    lm[q] = (uint32_t)__ldg(rr.lm + (size_t)b * rr.s_lm + q);
+  }
+  const int len = __ldg(lens + b);
   const int w = c >> 4;
-  const int* row = text_rows + (size_t)(w >> 3) * row_width;
   const int sub = w & 7;
-  // words past the row's end read as 0, like the reference's zero-filled
-  // funnel shift (never reached when rows are built for this read length)
-  auto word_at = [&](int q) -> uint32_t {
-    return sub + q < row_width ? (uint32_t)__ldg(row + sub + q) : 0u;
-  };
-  const size_t o = (size_t)i * W;
-  nm[i] = window_nm(word_at, (uint32_t)(c & 15) * 2u, read_words + o,
-                    amb_bits + o, len_mask + o, W);
+  const int* row = text_rows + (size_t)(w >> 3) * row_width;
+  uint32_t x[kVecRows ? 4 * ((W + 8 + 3) / 4) : W + 1];
+  if constexpr (kVecRows) {  // the whole row (W + 8 words at most), then the window
+    constexpr int kV = (W + 8 + 3) / 4;
+#pragma unroll
+    for (int v = 0; v < kV; ++v) {
+      // words past the row's end read as 0, like the reference's
+      // zero-filled funnel (never reached when rows are built for this
+      // read length)
+      const int4 t = 4 * v < row_width ? __ldg((const int4*)row + v) : make_int4(0, 0, 0, 0);
+      x[4 * v] = t.x; x[4 * v + 1] = t.y; x[4 * v + 2] = t.z; x[4 * v + 3] = t.w;
+    }
+    shift_if<1>(x, sub & 1);
+    shift_if<2>(x, sub & 2);
+    shift_if<4>(x, sub & 4);
+  } else {
+#pragma unroll
+    for (int q = 0; q <= W; ++q) x[q] = sub + q < row_width ? (uint32_t)__ldg(row + sub + q) : 0u;
+  }
+  const uint32_t ob = (uint32_t)(c & 15) * 2u;
+  int nm = 0;
+#pragma unroll
+  for (int q = 0; q < W; ++q) {
+    const uint32_t xo = __funnelshift_r(x[q], x[q + 1], ob) ^ rw[q];  // ob = 0: x[q]
+    nm += __popc((((xo | (xo >> 1)) & 0x55555555u) | ab[q]) & lm[q]);
+  }
+  nm_out[j] = (long long)c + len <= text_len ? nm : kNmInvalid;
+}
+
+template <int W>
+cudaError_t launch_nm(int w, bool vec_rows, dim3 grid, cudaStream_t stream,
+                      const int* text_rows, int row_width, long long text_len,
+                      const int* spos, const int* sel, const int* count,
+                      const int* seed_off, ReadRows rr, const int* lens, int max_loc,
+                      int n_slots, int cap, int* cand, int* nm) {
+  if constexpr (W > kMaxW) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (w != W) {
+      return launch_nm<W + 1>(w, vec_rows, grid, stream, text_rows, row_width, text_len,
+                              spos, sel, count, seed_off, rr, lens, max_loc, n_slots, cap,
+                              cand, nm);
+    }
+    auto* f = vec_rows ? &verify_nm_kernel<W, true> : &verify_nm_kernel<W, false>;
+    f<<<grid, kThreads, 0, stream>>>(text_rows, row_width, text_len, spos, sel, count,
+                                     seed_off, rr, lens, max_loc, n_slots, cap, cand, nm);
+    return cudaSuccess;
+  }
 }
 
 __global__ void verify_locv_kernel(const int* __restrict__ locv,
@@ -98,22 +195,28 @@ __global__ void verify_locv_kernel(const int* __restrict__ locv,
                     amb_bits + o, len_mask + o, W);
 }
 
-constexpr int kThreads = 256;
-
 }  // namespace
 
-extern "C" int bwtpu_verify_nm(const void* text_rows, int row_width,
-                               long long text_len, const void* cand,
-                               const void* cvalid, const void* read_words,
-                               const void* amb_bits, const void* len_mask,
-                               const void* lens, int n_cand, int W, void* nm,
-                               void* stream) {
-  if (n_cand > 0) {
-    const int blocks = (n_cand + kThreads - 1) / kThreads;
-    verify_nm_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)text_rows, row_width, text_len, (const int*)cand,
-        (const bool*)cvalid, (const int*)read_words, (const int*)amb_bits,
-        (const int*)len_mask, (const int*)lens, n_cand, W, (int*)nm);
+extern "C" int bwtpu_verify_nm_max_width() { return kMaxW; }
+
+// vec_rows: the text rows are 16 B aligned with a width that is a multiple
+// of 4 words.
+extern "C" int bwtpu_verify_nm(const void* text_rows, int row_width, long long text_len,
+                               const void* spos, const void* sel, const void* count,
+                               const void* seed_off, const void* read_words,
+                               long long rw_stride, const void* amb_bits, long long ab_stride,
+                               const void* len_mask, long long lm_stride, const void* lens,
+                               int W, int max_loc, int n_slots, int cap, int vec_rows,
+                               void* cand, void* nm, void* stream) {
+  if (cap > 0) {
+    const ReadRows rr{(const int*)read_words, (const int*)amb_bits, (const int*)len_mask,
+                      rw_stride, ab_stride, lm_stride};
+    const cudaError_t err = launch_nm<1>(
+        W, vec_rows != 0, dim3((cap + kThreads - 1) / kThreads), (cudaStream_t)stream,
+        (const int*)text_rows, row_width, text_len, (const int*)spos, (const int*)sel,
+        (const int*)count, (const int*)seed_off, rr, (const int*)lens, max_loc, n_slots, cap,
+        (int*)cand, (int*)nm);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }

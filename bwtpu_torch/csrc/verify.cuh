@@ -1,7 +1,7 @@
-// Mismatch count of one candidate against its 2-bit packed read, shared by
-// the verify kernels of verify.cu (the XOR/popcount body of
+// Mismatch count of one candidate against its 2-bit packed read, for
+// verify.cu's verify_locv_kernel (the XOR/popcount body of
 // bwtpu/kernels/pallas_step.py::_verify_kernel and of
-// bwtpu/kernels/verify2.py::verify_packed / verify_packed_locv).
+// bwtpu/kernels/verify2.py::verify_packed_locv).
 //
 // `word_at(q)` yields text word q (q = 0..W) of the window that starts at
 // the candidate's word cand >> 4, 0 past the row's end. The window is

@@ -395,7 +395,10 @@ def _inexact_from_intervals(shard: Shard, sp, ep, seed_off, read_words,
     """Seed-lane intervals -> ONE compaction -> locate -> packed verify.
 
     Lane l = read_row * (k+1) + seed_slot; a candidate's read start is
-    locate(row) - seed_off[l]. Returns the compacted candidate list
+    locate(row) - seed_off[l]; at sa_rate > 1 (or without the locv
+    table) verify_nm finds each candidate's read row, seed offset and
+    validity itself, so nothing runs between locate_walk and verify_nm.
+    Returns the compacted candidate list
     (cand_c, nm_c, sel, count) plus the per-row incompleteness count
     (interval overflow, compaction drop or finisher loss) and the
     compaction overflow; with compact_output=False the candidates are
@@ -411,14 +414,14 @@ def _inexact_from_intervals(shard: Shard, sp, ep, seed_off, read_words,
     sel, count, comp_over, dropped = compact_counts(ep - sp, max_loc, cap)
     overflow = (overflow_s + dropped.to(torch.int32) + fix_over).reshape(
         B2, nS).sum(1, dtype=torch.int32)
-    sel_valid = torch.arange(cap, dtype=torch.int32, device=sp.device) < count
-    # sel indexes a live lane's own slots, so every gather below is in range
-    lane = sel // max_loc
-    b_idx = lane // nS
-    off_l = seed_off.index_select(0, lane)
-    reads_c = (read_words.index_select(0, b_idx), amb_bits.index_select(0, b_idx),
-               len_mask.index_select(0, b_idx), lens.index_select(0, b_idx))
     if sa_rate == 1 and shard.locv.shape[-1] > 1:
+        sel_valid = torch.arange(cap, dtype=torch.int32, device=sp.device) < count
+        # sel indexes a live lane's own slots, so every gather below is in range
+        lane = sel // max_loc
+        b_idx = lane // nS
+        off_l = seed_off.index_select(0, lane)
+        reads_c = (read_words.index_select(0, b_idx), amb_bits.index_select(0, b_idx),
+                   len_mask.index_select(0, b_idx), lens.index_select(0, b_idx))
         # fused locate+verify: ONE row per candidate yields the SA value
         # and the text window (verify2.build_locv_rows)
         spos_c, nm_c = verify_locv(shard.locv, shard.text_len,
@@ -426,11 +429,13 @@ def _inexact_from_intervals(shard: Shard, sp, ep, seed_off, read_words,
                                    off_l, *reads_c)
         cand_c = spos_c - off_l
     else:
+        # the candidates' read rows, seed offsets and validity are found in
+        # verify_nm's kernel, from sel and the read-level rows
         spos_c = locate_walk(shard.lattice, shard.ssa, shard.C, shard.dollar_row,
                              rows.reshape(-1), sel, count, sa_rate)
-        cand_c = spos_c - off_l
-        nm_c = verify_nm(shard.text_rows, shard.text_len, cand_c,
-                         sel_valid & (spos_c >= 0), *reads_c)
+        cand_c, nm_c = verify_nm(shard.text_rows, shard.text_len, spos_c, sel, count,
+                                 seed_off, read_words, amb_bits, len_mask, lens, max_loc,
+                                 nS)
     if compact_output:
         return cand_c, nm_c, sel, count, overflow, comp_over
     total = B2 * nS * max_loc

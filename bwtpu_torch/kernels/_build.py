@@ -115,6 +115,16 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def on_cuda(kernel: str, t: torch.Tensor) -> bool:
+    """False for a CPU tensor (the wrapper runs its plain version), True
+    for a CUDA tensor (it launches its kernel); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for device {t.device}")
+    return True
+
+
 def check_tensor(kernel: str, name: str, t: torch.Tensor, dtype, ndim: int,
                  device) -> None:
     """Raise unless t is a contiguous ndim-D dtype tensor on device."""

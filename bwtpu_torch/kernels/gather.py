@@ -39,11 +39,9 @@ def row_gather_sum(table, idx, G: int = 1024, inflight: int = 8):
     """int32[8, Wr] (row 0 = the wrapped column sum of table[idx[:(n // G)
     * G]]): the CUDA kernel on CUDA tensors, `row_gather_sum_plain` on CPU
     tensors, else an error. Indices must lie in [0, N)."""
-    dev = table.device
-    if dev.type == "cpu":
+    if not _build.on_cuda("row_gather_sum", table):
         return row_gather_sum_plain(table, idx, G)
-    if dev.type != "cuda":
-        raise ValueError(f"row_gather_sum: no kernel for device {dev}")
+    dev = table.device
     _build.check_tensor("row_gather_sum", "table", table, torch.int32, 2, dev)
     _build.check_tensor("row_gather_sum", "idx", idx, torch.int32, 1, dev)
     if G < 1 or inflight not in INFLIGHT:

@@ -79,11 +79,9 @@ def locate_walk(lattice, ssa, C, dollar_row: int, rows, sel, count, sa_rate: int
     loads per lane (the lattice sits in L2 at bacterial scale); each
     thread stops at its mark bit. At sa_rate == 1 no kernel runs (one
     ssa gather)."""
-    dev = rows.device
-    if dev.type == "cpu" or sa_rate == 1:
+    if sa_rate == 1 or not _build.on_cuda("locate_walk", rows):
         return _locate_plain(lattice, ssa, C, dollar_row, rows, sel, count, sa_rate)
-    if dev.type != "cuda":
-        raise ValueError(f"locate_walk: no kernel for device {dev}")
+    dev = rows.device
     for name, t, ndim in (("lattice", lattice, 2), ("ssa", ssa, 1), ("C", C, 1),
                           ("rows", rows, 1), ("sel", sel, 1), ("count", count, 0)):
         _build.check_tensor("locate_walk", name, t, torch.int32, ndim, dev)

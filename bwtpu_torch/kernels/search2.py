@@ -110,36 +110,32 @@ def _check_chain_args(kernel, lattice, C, ra_codes, ra_amb, lens, sp0, ep0, d):
         raise ValueError(f"{kernel}: lattice must be 16-byte aligned")
 
 
-def _on_cuda(kernel, t) -> bool:
-    """False for a CPU tensor (the plain version runs), True for CUDA."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{kernel}: no kernel for device {t.device}")
-    return True
-
-
 def search_chain1(lattice, C, dollar_row: int, ra_codes, ra_amb, lens, sp0, ep0,
                   d: int):
     """The mainline of backward_search_ra: (sp, ep, strag bool). The CUDA
     kernel on CUDA tensors, `_search_ra_chain` on CPU tensors, else an
-    error. A kernel thread stops at its lane's first straggle, so a
-    flagged lane's sp and ep may differ from the plain version's (both
+    error. A kernel thread stages its lane's pattern in registers, then
+    runs its chain with nothing but record loads on it (any L: rows are
+    restaged every 128 steps), and stops at its lane's first straggle, so
+    a flagged lane's sp and ep may differ from the plain version's (both
     are garbage there and overwritten by the fixup); flags and every
     other lane are equal."""
-    if not _on_cuda("search_chain1", ra_codes):
+    if not _build.on_cuda("search_chain1", ra_codes):
         return _search_ra_chain(lattice, C, dollar_row, ra_codes, ra_amb, lens,
                                 sp0, ep0, d)
     _check_chain_args("search_chain1", lattice, C, ra_codes, ra_amb, lens, sp0, ep0, d)
     B, L = ra_codes.shape
     sp, ep = torch.empty_like(sp0), torch.empty_like(ep0)
     strag = torch.empty(B, dtype=torch.bool, device=sp0.device)
-    lib = _lib("search1", "bwtpu_search_chain1", 4)
-    rc = lib.bwtpu_search_chain1(
-        lattice.data_ptr(), C.data_ptr(), int(dollar_row), ra_codes.data_ptr(),
-        ra_amb.data_ptr(), lens.data_ptr(), sp0.data_ptr(), ep0.data_ptr(), B, L,
-        d, sp.data_ptr(), ep.data_ptr(), strag.data_ptr(), _build.stream_of(sp0),
-    )
+    lib = _build.library("search1")
+    f = lib.bwtpu_search_chain1
+    if f.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        f.restype = i
+        f.argtypes = [p, p, i, p, p, p, p, p, i, i, i, p, p, p, p]
+    rc = f(lattice.data_ptr(), C.data_ptr(), int(dollar_row), ra_codes.data_ptr(),
+           ra_amb.data_ptr(), lens.data_ptr(), sp0.data_ptr(), ep0.data_ptr(), B, L, d,
+           sp.data_ptr(), ep.data_ptr(), strag.data_ptr(), _build.stream_of(sp0))
     _build.check(lib, rc, "search_chain1")
     _build.count_launch(search_chain1)
     return sp, ep, strag
@@ -200,7 +196,7 @@ def search_chain2(lattice, C, dollar_row: int, pattern, sp0, ep0, sel, count, sp
     `Planes`), written into sp[lane] and ep[lane] IN PLACE; no other
     lane is touched. The CUDA kernel on CUDA tensors, `_chain2_plain` on
     CPU tensors, else an error."""
-    if not _on_cuda("search_chain2", sp):
+    if not _build.on_cuda("search_chain2", sp):
         return _chain2_plain(lattice, C, dollar_row, pattern, sp0, ep0, sel, count, sp, ep,
                              d)
     dev = sp.device
@@ -252,16 +248,6 @@ def _chain2_entry(packed: bool):
         f.restype = i
         f.argtypes = head + [p] * 4 + [i] * 2 + [p] * 3
     return lib, f
-
-
-def _lib(source: str, entry: str, n_out: int):
-    lib = _build.library(source)
-    f = getattr(lib, entry)
-    if f.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        f.restype = ctypes.c_int
-        f.argtypes = [p, p, i, p, p, p, p, p, i, i, i] + [p] * n_out
-    return lib
 
 
 # ---------------------------------------------------------------------------

@@ -8,12 +8,15 @@ Device part: two entry points, each launching a hand-written kernel of
 csrc/verify.cu on CUDA tensors and running its plain-torch version on
 CPU tensors:
 
-  verify_nm    sa_rate > 1 (or locv off): one thread per candidate fuses
-               the stride-8 text-row load, the bit-phase funnel and the
-               popcount; plain version `verify_packed`. Index range of
-               the row gather: an in-range candidate has cand + len <=
-               text_len, so row (cand >> 4) >> 3 exists; other lanes use
-               position 0.
+  verify_nm    sa_rate > 1 (or locv off): the compacted candidates as
+               locate leaves them (positions, sel, a device count) and
+               the read-level rows; one thread per candidate finds its
+               read row, seed offset and validity, loads its text row
+               and counts the mismatches; plain version
+               `verify_nm_plain` (the per-candidate gathers, then
+               `verify_packed`). Index range of the text-row gather: an
+               in-range candidate has cand + len <= text_len, so row
+               (cand >> 4) >> 3 exists; other lanes use position 0.
   verify_locv  sa_rate == 1 with the fused locate+verify table: one
                thread per candidate loads its locv row (SA value + text
                window) and returns the position and the mismatch count;
@@ -165,47 +168,82 @@ def verify_locv_plain(locv, text_len: int, rows, valid, off, read_words,
     return spos, nm
 
 
-def verify_nm(text_rows, text_len: int, cand, cvalid, read_words, amb_bits,
-              len_mask, lens):
-    """nm int32[Cc] (NM_INVALID where invalid/out of range): the CUDA
-    kernel on CUDA tensors, `verify_packed` on CPU tensors, else an error.
+def verify_nm_plain(text_rows, text_len: int, spos, sel, count, seed_off, read_words,
+                    amb_bits, len_mask, lens, max_loc: int, n_slots: int):
+    """Plain torch version of verify_nm: the per-candidate gathers of the
+    read rows and seed offsets, then `verify_packed`. Returns (cand, nm)
+    int32[len(sel)]."""
+    sel_valid = torch.arange(sel.shape[0], dtype=torch.int32, device=sel.device) < count
+    # sel names a lane on every slot (0 past count), so every gather is in range
+    lane = sel // max_loc
+    b_idx = lane // n_slots
+    cand = spos - seed_off.index_select(0, lane)
+    nm = verify_packed(text_rows, text_len, cand, sel_valid & (spos >= 0),
+                       read_words.index_select(0, b_idx), amb_bits.index_select(0, b_idx),
+                       len_mask.index_select(0, b_idx), lens.index_select(0, b_idx))
+    return cand, nm
 
-    The kernel replaces bwtpu/kernels/pallas_step.py::verify_nm_pallas
-    plus the text-row gather and word funnel before it. On the H100 it
-    is bound by one dependent text-row load per candidate and the 3 x W
-    read-side words it streams; the arithmetic is a few dozen integer
-    ops per word."""
-    dev = cand.device
-    if dev.type == "cpu":
-        return verify_packed(text_rows, text_len, cand, cvalid, read_words,
-                             amb_bits, len_mask, lens)
-    if dev.type != "cuda":
-        raise ValueError(f"verify_nm: no kernel for device {dev}")
+
+def verify_nm(text_rows, text_len: int, spos, sel, count, seed_off, read_words, amb_bits,
+              len_mask, lens, max_loc: int, n_slots: int):
+    """Candidate starts and mismatch counts of the compacted candidates.
+
+    Slot j (of len(sel)) holds lane sel[j] // max_loc, a seed lane of read
+    row b = lane // n_slots, located at spos[j] (`locate_walk`'s output,
+    -1 past count; `compact_counts` gives sel and the 0-dim device count).
+    Returns (cand, nm) int32[len(sel)]: cand[j] = spos[j] -
+    seed_off[lane], and nm[j] the mismatch count of read row b (read-level
+    int32[B2, W] planes read_words, amb_bits, len_mask, any row stride;
+    lens int32[B2]) at cand[j], NM_INVALID unless j < count, spos[j] >= 0
+    and the candidate lies in the text. The CUDA kernel on CUDA tensors,
+    `verify_nm_plain` on CPU tensors, else an error.
+
+    The kernel replaces bwtpu/kernels/pallas_step.py::verify_nm_pallas,
+    the text-row gather and word funnel before it and the per-candidate
+    row take of bwtpu/engine.py:523-541; one thread per candidate, W a
+    template parameter (instances up to `bwtpu_verify_nm_max_width()`
+    words; a wider read raises ValueError)."""
+    if not _build.on_cuda("verify_nm", spos):
+        return verify_nm_plain(text_rows, text_len, spos, sel, count, seed_off, read_words,
+                               amb_bits, len_mask, lens, max_loc, n_slots)
+    dev = spos.device
     check = _build.check_tensor
     check("verify_nm", "text_rows", text_rows, torch.int32, 2, dev)
-    for name, t in (("cand", cand), ("lens", lens)):
+    for name, t in (("spos", spos), ("sel", sel), ("seed_off", seed_off), ("lens", lens)):
         check("verify_nm", name, t, torch.int32, 1, dev)
-    check("verify_nm", "cvalid", cvalid, torch.bool, 1, dev)
+    check("verify_nm", "count", count, torch.int32, 0, dev)
+    B2, W = read_words.shape
     for name, t in (("read_words", read_words), ("amb_bits", amb_bits),
                     ("len_mask", len_mask)):
-        check("verify_nm", name, t, torch.int32, 2, dev)
-    Cc, W = read_words.shape
-    if not (cvalid.shape == lens.shape == cand.shape == (Cc,)
-            and amb_bits.shape == len_mask.shape == (Cc, W)):
-        raise ValueError("verify_nm: per-candidate inputs disagree in shape")
+        if (t.dtype != torch.int32 or t.device != dev or tuple(t.shape) != (B2, W)
+                or (W > 1 and t.stride(1) != 1)):
+            raise ValueError(f"verify_nm: {name} must be an int32 [{B2}, {W}] tensor on "
+                             f"{dev} with unit column stride, got {t.dtype} "
+                             f"{tuple(t.shape)} strides {t.stride()} on {t.device}")
+    cap = sel.shape[0]
+    if not (spos.shape == (cap,) and lens.shape == (B2,)
+            and seed_off.shape == (B2 * n_slots,) and max_loc >= 1 and n_slots >= 1):
+        raise ValueError("verify_nm: spos, sel, seed_off, lens, max_loc and n_slots "
+                         "disagree in shape")
     if -(-int(text_len) // 16) > text_rows.shape[0] * TEXT_ROW_STRIDE:
         raise ValueError("verify_nm: text_rows are too few for text_len")
-    nm = torch.empty_like(cand)
     lib = _lib()
+    if not 1 <= W <= lib.bwtpu_verify_nm_max_width():
+        raise ValueError(f"verify_nm: reads of {W} words (> {16 * W - 16} bases) have no "
+                         f"kernel instance; the widest is "
+                         f"{lib.bwtpu_verify_nm_max_width()} words "
+                         f"({16 * lib.bwtpu_verify_nm_max_width()} bases)")
+    vec_rows = text_rows.shape[1] % 4 == 0 and text_rows.data_ptr() % 16 == 0
+    cand, nm = torch.empty_like(spos), torch.empty_like(spos)
+    planes = [x for t in (read_words, amb_bits, len_mask) for x in (t.data_ptr(), t.stride(0))]
     rc = lib.bwtpu_verify_nm(
-        text_rows.data_ptr(), text_rows.shape[1], int(text_len),
-        cand.data_ptr(), cvalid.data_ptr(), read_words.data_ptr(),
-        amb_bits.data_ptr(), len_mask.data_ptr(), lens.data_ptr(), Cc, W,
-        nm.data_ptr(), _build.stream_of(cand),
-    )
+        text_rows.data_ptr(), text_rows.shape[1], int(text_len), spos.data_ptr(),
+        sel.data_ptr(), count.data_ptr(), seed_off.data_ptr(), *planes, lens.data_ptr(), W,
+        int(max_loc), int(n_slots), cap, int(vec_rows), cand.data_ptr(), nm.data_ptr(),
+        _build.stream_of(spos))
     _build.check(lib, rc, "verify_nm")
     _build.count_launch(verify_nm)
-    return nm
+    return cand, nm
 
 
 verify_nm.launches = 0  # kernel launches since the last reset
@@ -224,12 +262,10 @@ def verify_locv(locv, text_len: int, rows, valid, off, read_words, amb_bits,
     code XLA fused there, not a Pallas kernel. On the H100 it is bound by
     one dependent 64 B row load per candidate (L 100) from a table of
     ~300 MB at E. coli scale, plus 3 x W read-side words."""
-    dev = rows.device
-    if dev.type == "cpu":
+    if not _build.on_cuda("verify_locv", rows):
         return verify_locv_plain(locv, text_len, rows, valid, off, read_words,
                                  amb_bits, len_mask, lens)
-    if dev.type != "cuda":
-        raise ValueError(f"verify_locv: no kernel for device {dev}")
+    dev = rows.device
     check = _build.check_tensor
     check("verify_locv", "locv", locv, torch.int32, 2, dev)
     for name, t in (("rows", rows), ("off", off), ("lens", lens)):
@@ -266,9 +302,11 @@ def _lib():
     f = lib.bwtpu_verify_nm
     if f.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        f.restype = ctypes.c_int
-        f.argtypes = [p, i, ll, p, p, p, p, p, p, i, i, p, p]
+        lib.bwtpu_verify_nm_max_width.restype = i
+        lib.bwtpu_verify_nm_max_width.argtypes = []
+        f.restype = i
+        f.argtypes = [p, i, ll, p, p, p, p, p, ll, p, ll, p, ll, p] + [i] * 5 + [p] * 3
         g = lib.bwtpu_verify_locv
-        g.restype = ctypes.c_int
+        g.restype = i
         g.argtypes = [p, ll, p, p, p, p, p, p, p, i, i, p, p, p]
     return lib

@@ -15,9 +15,12 @@ Phases, in order; any failure raises and the exit code is not 0:
      launches between one event pair, divided by 50) and its bound:
      search_chain2, locate_walk and verify_nm on the very arguments one
      block of phase 5's reads hands them (k = 0 and k = 2; search_chain2
-     also on one lane alone, its latency floor), the 1-step search_chain1 at the Read-list path's shapes, verify_locv at
-     that index's locv table, row_gather_sum at that table (Wr 16) and
-     at the 9.3 MB multi-step lattice (Wr 128);
+     also on one lane alone, its latency floor), search_chain1 on the
+     very arguments one batch of phase 6's reads hands it through
+     Engine.dispatch_batch (k = 0 reads and k = 2 seeds, each timed 3x;
+     also one lane alone, its latency floor, and the L2 sectors its chain
+     requests), verify_locv at that index's locv table, row_gather_sum at
+     that table (Wr 16) and at the 9.3 MB multi-step lattice (Wr 128);
   4. phiX174 through the port's CLI on the card, byte-equal to
      data/phiX174_golden.sam;
   5. slice 1's path at E. coli scale: `build-index` with the CLI
@@ -40,7 +43,8 @@ Phases, in order; any failure raises and the exit code is not 0:
      verify_nm not;
   8. the A/B entry point of the row gather (scripts/torch_gather_ab.py)
      at a locv row's width, at the text-row table's size (phase 3 timed
-     the locv table's);
+     the locv table's): an L2-resident gather rate, against which
+     search_chain1's L2 sectors are read;
   9. the result line.
 
 The genome is random at E. coli size (4,641,652 bp) with one dispersed
@@ -155,10 +159,17 @@ def phase_build():
     _build.build_all(names)
     for name in names:
         info = _build.build_info[name]
-        say(f"  {name}.cu: built in {info['seconds']:.2f} s")
-        for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                say("   ", line.strip())
+        regs = [int(w) for line in info["ptxas"].splitlines() if "Used" in line
+                for w in line.split("Used")[1].split()[:1]]
+        spills = [line.strip() for line in info["ptxas"].splitlines() if "spill" in line
+                  and "0 bytes spill stores, 0 bytes spill loads" not in line]
+        # a register array indexed by a value the compiler cannot fold
+        # lives in local memory: its stack frame
+        stack = [int(line.split("bytes stack frame")[0].split()[-1])
+                 for line in info["ptxas"].splitlines() if "bytes stack frame" in line]
+        say(f"  {name}.cu: built in {info['seconds']:.2f} s; {len(regs)} kernels, "
+            f"registers {min(regs, default=0)}-{max(regs, default=0)}; largest stack frame "
+            f"{max(stack, default=0)} B; spills: {'; '.join(spills) or 'none'}")
     say(f"  build total {time.perf_counter() - t0:.2f} s")
 
 
@@ -183,11 +194,9 @@ def phase_kernels(tmp: str, genome: str, fa: str, reads, block_reads):
     import torch
 
     from bwtpu_torch.config import EngineConfig
-    from bwtpu_torch.engine import _len_mask_words
     from bwtpu_torch.index import build_fm_index
     from bwtpu_torch.kernels.locate import _locate_plain, locate_walk
-    from bwtpu_torch.kernels.verify2 import (build_text_rows, verify_nm,
-                                             verify_packed)
+    from bwtpu_torch.kernels.verify2 import build_text_rows
 
     say("[3] kernels vs plain torch on the card (exact equality)")
     sa1_dir = build_sa1_index(tmp, fa)
@@ -227,29 +236,49 @@ def phase_kernels(tmp: str, genome: str, fa: str, reads, block_reads):
             text_len = idx.text_len
             latk = put(idx.occk_lattice)
 
-    L, W = 100, 7
-    cand = rng.integers(-10, text_len + 10, size=LANES).astype(np.int32)
-    cand[:5] = [-1, 0, 16 * 1000, text_len - L, text_len - L + 1]  # ob == 0, edges
-    cvalid = rng.random(LANES) < 0.85
-    cvalid[:5] = True
-    words = rng.integers(-2**31, 2**31, size=(LANES, W), dtype=np.int64).astype(np.int32)
-    amb = np.where(rng.random((LANES, W)) < 0.05,
-                   1 << (2 * rng.integers(0, 16, size=(LANES, W))), 0).astype(np.int32)
-    lm = np.broadcast_to(_len_mask_words(L), (LANES, W))
-    args = (text_rows, text_len, put(cand), put(cvalid), put(words), put(amb),
-            put(lm), put(np.full(LANES, L, np.int32)))
-    got = verify_nm(*args)
-    ref = verify_packed(*args)
-    torch.cuda.synchronize()
-    err = int((got - ref).abs().max())
-    require(err == 0, f"verify_nm != verify_packed: max |diff| {err}")
-    say(f"  verify_nm    L {L}, W {W}, {LANES} random candidates: equal; in range "
-        f"{int((ref != 255).sum())}")
+    verify_edges(text_rows, text_len, put, rng)
     records = main_path_kernels(idx8, block_reads)
     records.update(search_kernels(idx8, reads[:BATCH], put))
     locv = locv_kernel(genome, sa1_dir, put, rng, records)
     records["row_gather_sum"] = gather_kernel(put(locv), latk, rng)
     return records, sa1_dir
+
+
+def verify_edges(text_rows, text_len: int, put, rng):
+    """verify_nm against its plain version on random compacted candidates
+    of 100 bp reads (L 100, W 7): 1,024 read rows x 3 seed slots x 32
+    slots each, 61,440 of 65,536 slots live, positions in and out of the
+    text, -1, bit phase 0, the last two starts; seed offsets past the
+    read's end; reads shorter than L."""
+    import numpy as np
+    import torch
+
+    from bwtpu_torch.kernels.verify2 import pack_reads, verify_nm, verify_nm_plain
+
+    L, B2, n_slots, max_loc, count = 100, 1024, 3, 32, LANES * 15 // 16
+    codes = rng.integers(0, 4, size=(B2, L)).astype(np.int32)
+    amb = (rng.random((B2, L)) < 0.01).astype(np.int32)
+    lens = np.full(B2, L, np.int32)
+    lens[::7] = rng.integers(30, L, size=len(lens[::7]))
+    rw, ab, lm = pack_reads(codes, amb, lens)
+    seed_off = rng.integers(0, L, size=B2 * n_slots).astype(np.int32)
+    seed_off[::11] = rng.integers(L, L + 30, size=len(seed_off[::11]))
+    sel = np.zeros(LANES, np.int32)
+    sel[:count] = np.sort(rng.choice(B2 * n_slots * max_loc, count, replace=False))
+    spos = rng.integers(-10, text_len + 10, size=LANES).astype(np.int32)
+    spos[2::6] &= ~15  # bit phase 0
+    spos[:5] = [-1, 0, 16 * 1000, text_len - L, text_len - L + 1]
+    spos[:5] += seed_off[sel[:5] // max_loc]
+    spos[count:] = -1
+    args = (text_rows, text_len, put(spos), put(sel),
+            torch.tensor(count, dtype=torch.int32, device=text_rows.device), put(seed_off),
+            put(rw), put(ab), put(lm), put(lens), max_loc, n_slots)
+    got, want = verify_nm(*args), verify_nm_plain(*args)
+    torch.cuda.synchronize()
+    err = max(int((a - b).abs().max()) for a, b in zip(got, want))
+    require(err == 0, f"verify_nm != verify_nm_plain: max |diff| {err}")
+    say(f"  verify_nm    L {L}, W 7, {LANES} compacted slots ({count} live, "
+        f"{n_slots} seed slots): equal; in range {int((want[1] != 255).sum())}")
 
 
 @contextlib.contextmanager
@@ -284,7 +313,7 @@ def main_path_kernels(idx, block_reads):
 
     from bwtpu_torch import engine
     from bwtpu_torch.kernels import locate, search2
-    from bwtpu_torch.kernels.verify2 import verify_nm, verify_packed
+    from bwtpu_torch.kernels.verify2 import verify_nm, verify_nm_plain
     from bwtpu_torch.readblock import ReadBlock
 
     blk = ReadBlock.from_reads(block_reads)
@@ -299,7 +328,7 @@ def main_path_kernels(idx, block_reads):
             f"{ {n: len(c) for n, c in calls[k].items()} }")
     kernels = {"search_chain2": (search2.search_chain2, search2._chain2_plain, chain2_work),
                "locate_walk": (locate.locate_walk, locate._locate_plain, locate_work),
-               "verify_nm": (verify_nm, verify_packed, verify_work)}
+               "verify_nm": (verify_nm, verify_nm_plain, verify_work)}
     # (name, k, call index, time the plain version too): the first call of
     # the block at each k; the heal's re-run repeats them at doubled caps
     require(calls[0]["search_chain2"] and len(calls[2]["search_chain2"]) >= 3
@@ -461,14 +490,23 @@ def locate_work(args):
 
 def verify_work(args):
     """(bytes, ops, what) of a verify_nm call: the text rows its in-range
-    candidates load, its per-candidate inputs, nm out."""
-    text_rows, tl, cand, cvalid, rw, ab, lm, lens = args
-    Cc, W = rw.shape
-    ok = cvalid & (cand >= 0) & (cand + lens <= tl)
+    candidates load; each slot's sel and position; the seed offsets and
+    the read-level rows (words, ambiguity bits, length mask, length) of
+    the lanes and reads the live slots name, each read once (a plane of
+    row stride 0 is one row); cand and nm out."""
+    tr, tl, spos, sel, count, seed_off, rw, ab, lm, lens, max_loc, n_slots = args
+    cap, W = sel.shape[0], rw.shape[1]
+    n = int(count)
+    lane = sel[:n] // max_loc
+    b = lane // n_slots
+    cand = spos[:n] - seed_off[lane]
+    ok = (spos[:n] >= 0) & (cand >= 0) & (cand + lens[b] <= tl)
     n_ok = int(ok.sum())
-    nbytes = (n_unique((cand[ok] >> 4) >> 3) * text_rows.shape[1] * 4 + Cc * 9
-              + Cc * 3 * W * 4 + Cc * 4)
-    return nbytes, n_ok * W * 12, f"{Cc} candidates, {n_ok} in range"
+    rows = n_unique(b)
+    plane_rows = sum(rows if t.stride(0) else 1 for t in (rw, ab, lm))
+    nbytes = (n_unique((cand[ok] >> 4) >> 3) * tr.shape[1] * 4 + cap * 8
+              + n_unique(lane) * 4 + plane_rows * W * 4 + rows * 4 + cap * 8)
+    return nbytes, n_ok * W * 12, f"{cap} slots, {n} live, {n_ok} in range"
 
 
 def locv_kernel(genome: str, sa1_dir: str, put, rng, records):
@@ -556,91 +594,159 @@ def gather_kernel(locv, latk, rng):
 
 
 def search_kernels(idx, batch, put):
-    """search_chain1 and search_chain2 against their plain chains at the
-    Read-list path's shapes on the CLI-default index `idx`: one batch of
-    16,384 mixed-length reads is 32,768 lanes x L 100 at d 11 (k = 0) and
-    98,304 seed lanes x 34 at d 11 (k = 2); the fixup runs on
-    min(B, max(256, B // 8)) = 4,096 lanes x 89 steps."""
+    """search_chain1 on the very arguments one batch of phase 6's reads
+    hands it (Engine.dispatch_batch on the CLI-default index `idx`: 16,384
+    mixed-length reads are 32,768 lanes x L 100 at d 11 for k = 0 and
+    98,304 seed lanes x 34 at d 11 for k = 2), each call checked against
+    its plain chain and timed RUNS times, and its one-lane floor; then
+    search_chain2 on planes at the fixup's shape, min(B, max(256, B // 8))
+    = 4,096 lanes x 89 steps."""
     import torch
 
-    from bwtpu_torch.engine import encode_batch, pick_kmer_depth
+    from bwtpu_torch import engine
+    from bwtpu_torch.kernels import search2
     from bwtpu_torch.kernels.search2 import (Planes, _search_ra_chain, _two_gather_search,
                                              search_chain1, search_chain2,
                                              start_intervals)
 
-    lat, C, dr = put(idx.search_lattice), put(idx.C), idx.dollar_row
-    records = {}
-    enc0, _ = encode_batch(idx.config, batch, 0)
-    enc2, _ = encode_batch(idx.config, batch, 2)
-    for what, planes, min_len in (
-            ("k=0 reads", (enc0.ra_codes, enc0.ra_amb, enc0.lens), enc0.min_len),
-            ("k=2 seeds", (enc2.seed_ra, enc2.seed_amb, enc2.seed_lens), enc2.min_seed_len)):
-        d = pick_kmer_depth(sorted(idx.kmer_tables), min_len)  # as dispatch_batch
-        kt = put(idx.kmer_tables[d])
-        codes, amb, lens = (put(a) for a in planes)
-        args = (lat, C, dr, codes, amb, lens,
-                *start_intervals(kt, idx.n, codes, amb, lens, d), d)
-        sp, ep, strag = search_chain1(*args)
-        psp, pep, pstrag = _search_ra_chain(*args)
+    calls = {0: [], 2: []}
+    for k in (0, 2):
+        with capturing(search2, "search_chain1", calls[k]):
+            engine.Engine([idx], device="cuda").dispatch_batch(batch, k)
         torch.cuda.synchronize()
+        require(len(calls[k]) == 1, f"dispatch_batch k={k}: {len(calls[k])} search_chain1 "
+                                    f"calls")
+    rec = {}
+    for k, what in ((0, "k=0 reads"), (2, "k=2 seeds")):
+        args = calls[k][0]
+        codes, d = args[3], args[8]
+        psp, pep, pstrag = _search_ra_chain(*args)
         ok = ~pstrag  # a kernel thread stops at its lane's first straggle
+        sp, ep, strag = search_chain1(*args)
+        torch.cuda.synchronize()
         err = max(int((strag != pstrag).sum()),
                   int((sp - psp)[ok].abs().max()), int((ep - pep)[ok].abs().max()))
         require(err == 0, f"search_chain1 != plain ({what}): max |diff| {err}")
-        ms = cuda_ms(lambda: search_chain1(*args))
+        mine = sorted(cuda_ms(lambda: search_chain1(*args)) for _ in range(RUNS))
+        ms = mine[RUNS // 2]
         plain = cuda_ms(lambda: _search_ra_chain(*args))
-        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, **bound(*chain1_work(args)))
-        say(f"  search_chain1 {what}, {tuple(codes.shape)} lanes x L, d {d}: equal "
-            f"(flags on all lanes, sp/ep off the {int(pstrag.sum())} flagged); kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms; bound {rec['bound_ms']:.5f} ms "
-            f"({rec['bound_by']}: {rec['bound_bytes']} B, {rec['bound_ops']} ops)")
-        records.setdefault("search_chain1", rec)
-        if what == "k=0 reads":
-            # the fixup's shape: 4,096 lanes x 89 steps; a quarter of the
-            # lanes start from the depth-4 table's (wide) intervals
-            B = codes.shape[0]
-            cap = min(B, max(256, B // 8))
-            sp0, ep0 = start_intervals(kt, idx.n, codes[:cap], amb[:cap], lens[:cap], d)
-            wsp, wep = start_intervals(put(idx.kmer_tables[4]), idx.n, codes[:cap],
-                                       amb[:cap], lens[:cap], 4)
-            wide = torch.arange(cap, device=codes.device) % 4 == 0
-            sp0 = torch.where(wide, wsp, sp0)
-            ep0 = torch.where(wide, wep, ep0)
-            want = _two_gather_search(lat, C, dr, codes[:cap], amb[:cap], lens[:cap], sp0,
-                                      ep0, d)
-            got = (torch.zeros_like(sp0), torch.zeros_like(ep0))
-            search_chain2(lat, C, dr, Planes(codes[:cap], amb[:cap], lens[:cap]), sp0, ep0,
-                          torch.arange(cap, dtype=torch.int32, device=codes.device),
-                          torch.tensor(cap, dtype=torch.int32, device=codes.device), *got, d)
-            torch.cuda.synchronize()
-            err2 = max(int((a - b).abs().max()) for a, b in zip(got, want))
-            require(err2 == 0, f"search_chain2 != plain: max |diff| {err2}")
-            width = (ep0 - sp0)[wide]
-            say(f"  search_chain2 (planes) {cap} lanes x {codes.shape[1] - d} steps: equal; "
-                f"wide starts: median width {int(width.median())}")
+        nbytes, ops, (all_sectors, sectors) = chain1_work(args)
+        b = bound(nbytes, ops)
+        say(f"  search_chain1 {what} (dispatch_batch's call), {tuple(codes.shape)} lanes x "
+            f"L, d {d}: equal (flags on all lanes, sp/ep off the {int(pstrag.sum())} "
+            f"flagged); kernel {ms:.4f} ms (runs {mine[0]:.4f}-{mine[-1]:.4f}), plain "
+            f"{plain:.4f} ms; bound {b['bound_ms']:.5f} ms ({b['bound_by']}: "
+            f"{b['bound_bytes']} B, {b['bound_ops']} ops); L2 sectors requested "
+            f"{sectors} ({sectors * 32 / 1e6:.1f} MB; the whole records would be "
+            f"{all_sectors}, {all_sectors * 32 / 1e6:.1f} MB)")
+        if k == 0:
+            rec = dict(max_abs_err=0, ms=ms, plain_ms=plain, **b, l2_sectors=sectors,
+                       **chain1_floor(args, pstrag))
+        else:
+            rec.update(seeds_ms=ms, seeds_plain_ms=plain, seeds_bound_ms=b["bound_ms"],
+                       seeds_l2_sectors=sectors)
+    records = {"search_chain1": rec}
+    # the fixup's shape: 4,096 lanes x 89 steps; a quarter of the lanes
+    # start from the depth-4 table's (wide) intervals
+    lat, C, dr, codes, amb, lens, _, _, d = calls[0][0]
+    B = codes.shape[0]
+    cap = min(B, max(256, B // 8))
+    kt = put(idx.kmer_tables[d])
+    sp0, ep0 = start_intervals(kt, idx.n, codes[:cap], amb[:cap], lens[:cap], d)
+    wsp, wep = start_intervals(put(idx.kmer_tables[4]), idx.n, codes[:cap], amb[:cap],
+                               lens[:cap], 4)
+    wide = torch.arange(cap, device=codes.device) % 4 == 0
+    sp0 = torch.where(wide, wsp, sp0)
+    ep0 = torch.where(wide, wep, ep0)
+    want = _two_gather_search(lat, C, dr, codes[:cap], amb[:cap], lens[:cap], sp0, ep0, d)
+    got = (torch.zeros_like(sp0), torch.zeros_like(ep0))
+    search_chain2(lat, C, dr, Planes(codes[:cap], amb[:cap], lens[:cap]), sp0, ep0,
+                  torch.arange(cap, dtype=torch.int32, device=codes.device),
+                  torch.tensor(cap, dtype=torch.int32, device=codes.device), *got, d)
+    torch.cuda.synchronize()
+    err2 = max(int((a - b).abs().max()) for a, b in zip(got, want))
+    require(err2 == 0, f"search_chain2 != plain: max |diff| {err2}")
+    width = (ep0 - sp0)[wide]
+    say(f"  search_chain2 (planes) {cap} lanes x {codes.shape[1] - d} steps: equal; "
+        f"wide starts: median width {int(width.median())}")
     return records
 
 
+def chain1_floor(args, pstrag) -> dict:
+    """search_chain1's latency floor: one lane alone (full length, no N
+    base, not flagged) on the main path's lattice (L2-resident), then the
+    same lane on the lattice of a 4,096 bp genome (4.2 KB, L1-resident)
+    from [0, 1): the same steps and loads, so the difference is the L2
+    round trip."""
+    import torch
+
+    from bwtpu_torch.config import EngineConfig
+    from bwtpu_torch.index import build_fm_index
+    from bwtpu_torch.kernels import search2
+    from bwtpu_torch.simulate import random_genome
+
+    lat, C, dr, codes, amb, lens, sp0, ep0, d = args
+    L = codes.shape[1]
+    lane = int(torch.nonzero((lens == L) & ~pstrag & (amb.sum(1) == 0))[0])
+    one = lambda t: t[lane:lane + 1].contiguous()  # noqa: E731
+    small = build_fm_index(random_genome(4096, seed=SEED), EngineConfig(sa_rate=8))
+    lat_s, C_s = (torch.from_numpy(a).to(lat.device) for a in (small.search_lattice, small.C))
+    runs = {"L2": (lat, C, dr, one(codes), one(amb), one(lens), one(sp0), one(ep0), d),
+            "L1": (lat_s, C_s, small.dollar_row, one(codes), one(amb), one(lens),
+                   torch.zeros_like(one(sp0)), torch.ones_like(one(ep0)), d)}
+    out = {}
+    for where, a in runs.items():
+        got, want = search2.search_chain1(*a), search2._search_ra_chain(*a)
+        torch.cuda.synchronize()
+        require(all(torch.equal(x, y) for x, y in zip(got, want)) and not bool(want[2]),
+                f"search_chain1 != plain on one lane ({where} lattice)")
+        out[where] = sorted(cuda_ms(lambda: search2.search_chain1(*a))
+                            for _ in range(RUNS))[RUNS // 2]
+    steps = L - d
+    say(f"    one lane's chain alone, {steps} steps: {out['L2']:.4f} ms "
+        f"({out['L2'] / steps * 1e3:.3f} us per step) on the main path's lattice; "
+        f"{out['L1']:.4f} ms ({out['L1'] / steps * 1e3:.3f} us per step) on a 4.2 KB "
+        f"lattice (L1)")
+    return {"one_lane_ms": out["L2"], "one_lane_l1_ms": out["L1"]}
+
+
 def chain1_work(args):
-    """(bytes, ops) of a search_chain1 call: the one-record chain replayed
-    to count the lattice blocks it loads (96 B: this block's and the
-    next block's checkpoint and BWT words) until each lane straggles."""
+    """(bytes, ops, (L2 sectors, needed sectors)) of a search_chain1 call:
+    the one-record chain replayed to count the lattice blocks it loads
+    (96 B: this block's and the next block's checkpoint and BWT words)
+    until each lane straggles; each lane reads its active columns of both
+    planes, its length and start, and writes sp, ep and its flag. The
+    sectors are the 32 B pieces of the lattice a lane-step requests: two
+    (words 0-11), two more when ep lies in block j + 1 (words 16-31); the
+    needed ones leave out those no rank reads."""
     import torch
 
     from bwtpu_torch.kernels import search2
 
     lat, C, dr, codes, amb, lens, sp, ep, d = args
     strag = torch.zeros_like(lens, dtype=torch.bool)
-    blocks, steps = [], torch.zeros((), dtype=torch.int64, device=sp.device)
+    blocks = []
+    steps = torch.zeros((), dtype=torch.int64, device=sp.device)
+    sectors = torch.zeros((), dtype=torch.int64, device=sp.device)
+    needed = torch.zeros((), dtype=torch.int64, device=sp.device)
     for c, a, active in search2._steps(codes, amb, lens, d):
-        live = active & ~strag & (a == 0)
-        blocks.append((sp >> 7)[live])
+        j, je = sp >> 7, ep >> 7
+        live = active & ~strag & (je <= j + 1)  # the lanes that load a record
+        blocks.append(j[live])
         steps += live.sum()
-        sp, ep, s2 = search2.search_step1(lat.index_select(0, sp >> 7), c, a, active, sp,
-                                          ep, C, dr)
+        nxt = live & (je != j)
+        sectors += 2 * live.sum() + 2 * nxt.sum()
+        # the sectors the ranks need: the second past row 64 of block j,
+        # the fourth past row 48 of block j + 1
+        m_s, m_e = sp & 127, ep & 127
+        needed += (live.sum() + (live & ((m_s > 64) | (~nxt & (m_e > 64)))).sum()
+                   + nxt.sum() + (nxt & (m_e > 48)).sum())
+        sp, ep, s2 = search2.search_step1(lat.index_select(0, j), c, a, active, sp, ep, C, dr)
         strag = strag | (s2 == 1)
-    B, Lc = codes.shape
-    return n_unique(torch.cat(blocks)) * 96 + B * (2 * Lc * 4 + 12) + B * 9, int(steps) * 250
+    L = codes.shape[1]
+    cols = (lens.clamp(max=L) - d).clamp(min=0).sum()
+    nbytes = n_unique(torch.cat(blocks)) * 96 + int(cols) * 8 + lens.numel() * (12 + 9)
+    return nbytes, int(steps) * 250, (int(sectors), int(needed))
 
 
 def run_cli(argv):
@@ -989,8 +1095,9 @@ def phase_locv(tmp: str, p5: dict, idx_dir: str):
 
 def phase_gather_ab():
     """The row gather's A/B entry point (scripts/torch_gather_ab.py) at a
-    locv row's width and the text-row table's size (2.3 MB); returns the
-    launches of that run."""
+    locv row's width and the text-row table's size (2.3 MB, L2-resident);
+    returns the launches of that run and the kernel's best rate there in
+    bytes per ms."""
     import importlib.util
 
     say("[8] scripts/torch_gather_ab.py --width 16 --sizes-mb 2.3")
@@ -1000,11 +1107,29 @@ def phase_gather_ab():
     ab = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ab)
     reset_launches()
-    rc = ab.main(["--width", "16", "--sizes-mb", "2.3", "--reps", "5"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = ab.main(["--width", "16", "--sizes-mb", "2.3", "--reps", "5"])
+    say(out.getvalue().rstrip())
     launches = read_launches()
     require(rc == 0 and launches["row_gather_sum"] > 0,
             f"torch_gather_ab: rc {rc}, launches {launches}")
-    return launches
+    rec = json.loads(out.getvalue().splitlines()[-1])
+    ns_per_row = min(rec["kernel_ns_per_row"].values())
+    return launches, rec["width"] * 4 / ns_per_row * 1e6
+
+
+def chain1_l2(rec: dict, bytes_per_ms: float) -> None:
+    """search_chain1's L2 sectors (32 B each) at phase 8's measured
+    L2-resident gather rate, beside its kernel time."""
+    for key, ms_key in (("l2_sectors", "ms"), ("seeds_l2_sectors", "seeds_ms")):
+        at_rate = rec[key] * 32 / bytes_per_ms
+        rec[key.replace("sectors", "sector_ms")] = at_rate
+        say(f"  search_chain1 {'k=0 reads' if ms_key == 'ms' else 'k=2 seeds'}: "
+            f"{rec[key]} L2 sectors ({rec[key] * 32 / 1e6:.1f} MB) take {at_rate:.4f} ms at "
+            f"phase 8's L2-resident gather rate ({bytes_per_ms / 1e6:.1f} GB/s); kernel "
+            f"{rec[ms_key]:.4f} ms, bound "
+            f"{rec['bound_ms' if ms_key == 'ms' else 'seeds_bound_ms']:.5f} ms")
 
 
 KERNELS = {  # name: (source, TPU kernel (or jnp code) it replaces)
@@ -1127,7 +1252,8 @@ def main() -> int:
         idx_dir, launches, p5 = phase_main(tmp, genome, fa, reads, truth)
         list_launches = phase_read_list(tmp, genome, idx_dir, list_reads, list_truth)
         locv_launches = phase_locv(tmp, p5, sa1_dir)
-    ab_launches = phase_gather_ab()
+    ab_launches, l2_rate = phase_gather_ab()
+    chain1_l2(records["search_chain1"], l2_rate)
     paths = {"slice 1's path": launches, "the Read-list path": list_launches,
              "the sa_rate 1 path": locv_launches, "the gather A/B": ab_launches}
     for what, counts in paths.items():

@@ -9,7 +9,11 @@ Engine.dispatch_block + finish_block:
   wall     synchronized only at both ends: the pass's own wall;
   stages   a torch.cuda.synchronize() around every stage (prep, search,
            finisher, compaction, locate_walk, verify_nm, hit compaction,
-           finish), so each stage's wall is its own. Heals re-run the
+           finish), so each stage's wall is its own, and one more row,
+           "candidate stage": from the end of the candidate compaction to
+           the end of verify_nm (locate_walk, verify_nm and every op
+           around them that forms each candidate's start and mismatch
+           count; the sa_rate > 1 branch only). Heals re-run the
            pipeline inside finish, so at k = 2 the stage rows add up to
            more than the total;
   profile  under torch.profiler (CUDA activity only): device kernels and
@@ -23,7 +27,8 @@ Then the Read-list path (Engine.align_batch on BLOCKS batches of BATCH
 reads of 50-100 bp, the CLI's FASTA route) at k = 0 and k = 2, after one
 warm-up batch: a plain pass and a stage-synced pass (host encoding,
 upload, 1-step search incl. its fixup, compaction, locate_walk,
-verify_nm, scatter back, fetch, host assembly), then the SAM text of the same batches
+verify_nm, the candidate stage, scatter back, fetch, host assembly), then
+the SAM text of the same batches
 timed alone. One JSON line per k, "path": "read_list".
 
 Then bench.py's single-end configuration: `build-index --sa-rate 1`
@@ -85,6 +90,37 @@ def _patch(patches, timed):
     return saved
 
 
+def _candidate_window(totals, counts):
+    """Patches that time the candidate stage: from the return of the
+    last compact_counts (synchronized) to the return of verify_nm
+    (synchronized), whatever runs between them."""
+    import torch
+
+    from bwtpu_torch import engine
+
+    start = [None]
+    compact_counts, verify_nm = engine.compact_counts, engine.verify_nm
+
+    def compact_then_mark(*a, **kw):
+        out = compact_counts(*a, **kw)
+        torch.cuda.synchronize()
+        start[0] = time.perf_counter()
+        return out
+
+    def verify_then_read(*a, **kw):
+        out = verify_nm(*a, **kw)
+        torch.cuda.synchronize()
+        if start[0] is not None:
+            totals["candidate stage"] += time.perf_counter() - start[0]
+            counts["candidate stage"] += 1
+        start[0] = None
+        return out
+
+    saved = [(engine, "compact_counts", compact_counts), (engine, "verify_nm", verify_nm)]
+    engine.compact_counts, engine.verify_nm = compact_then_mark, verify_then_read
+    return saved
+
+
 def _stage_hooks(totals, counts):
     """Synchronized timers around the block path's stages."""
     from bwtpu_torch import engine
@@ -111,6 +147,7 @@ def _stage_hooks(totals, counts):
                     (engine, "verify_nm", "verify_nm"),
                     (engine, "verify_locv", "verify_locv"),
                     (engine, "compact", "hit compaction")], timed)
+    saved = _candidate_window(totals, counts) + saved
     saved.append((engine.Engine, "finish_block", finish))
     engine.Engine.finish_block = finish_outer
     return saved
@@ -120,15 +157,16 @@ def _read_list_hooks(totals, counts):
     """Synchronized timers around the Read-list path's stages."""
     from bwtpu_torch import engine
 
-    return _patch([(engine, "encode_batch", "encode (host)"),
-                   (engine, "backward_search_ra", "1-step search + fixup"),
-                   (engine, "compact_counts", "compaction"),
-                   (engine, "locate_walk", "locate_walk"),
-                   (engine, "verify_nm", "verify_nm"),
-                   (engine, "scatter_back", "scatter back"),
-                   (engine, "assemble_hits", "host assembly"),
-                   (engine, "_np", "fetch (D2H)"),
-                   (engine.Engine, "_put", "upload (H2D)")], _timer(totals, counts))
+    saved = _patch([(engine, "encode_batch", "encode (host)"),
+                    (engine, "backward_search_ra", "1-step search + fixup"),
+                    (engine, "compact_counts", "compaction"),
+                    (engine, "locate_walk", "locate_walk"),
+                    (engine, "verify_nm", "verify_nm"),
+                    (engine, "scatter_back", "scatter back"),
+                    (engine, "assemble_hits", "host assembly"),
+                    (engine, "_np", "fetch (D2H)"),
+                    (engine.Engine, "_put", "upload (H2D)")], _timer(totals, counts))
+    return _candidate_window(totals, counts) + saved
 
 
 def _read_list(genome, shards, contigs, smi):

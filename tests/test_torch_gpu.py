@@ -16,12 +16,16 @@ from bwtpu_torch.config import EngineConfig
 from bwtpu_torch.index import build_fm_index
 from bwtpu_torch.kernels import search2
 from bwtpu_torch.kernels.locate import _locate_plain, locate_walk
-from bwtpu_torch.kernels.verify2 import (build_text_rows, pack_reads, verify_nm,
-                                         verify_packed)
+from bwtpu_torch.kernels.verify2 import build_text_rows, pack_reads, verify_nm
 from bwtpu_torch.simulate import random_genome, simulate_reads
 
 GENOME = random_genome(200000, seed=71)
 L = 100
+
+
+@pytest.fixture(scope="module")
+def idx8():
+    return build_fm_index(GENOME, EngineConfig(sa_rate=8))
 
 
 @pytest.fixture
@@ -63,38 +67,85 @@ def test_locate_walk_kernel_matches_plain(cuda, sa_rate, count):
         assert (got[count:] == -1).all() and (got[:count] >= 0).all()
 
 
-@pytest.mark.gpu
-def test_verify_nm_kernel_matches_plain(cuda):
-    idx = build_fm_index(GENOME, EngineConfig(sa_rate=8))
-    reads, truth = simulate_reads(GENOME, 4000, read_len=L, max_mismatches=2,
-                                  n_frac=0.01, seed=3)
-    codes = np.zeros((len(reads), L), np.int32)
-    amb = np.zeros((len(reads), L), np.int32)
+def _verify_nm_args(idx, W: int, n_slots: int, count: int, dev, shared_mask: bool):
+    """verify_nm's argument form at read width W (reads of 16 W - 5 bases,
+    a fifth of them shorter, N bases; text rows built for that length, so
+    both the 16 B row loads and the word-by-word ones run): n_slots seed
+    offsets per read (some past the read's end), `count` of 40,000 slots in
+    compact order located at true starts + offsets, random positions, -1,
+    bit phase 0 and the last two starts; sel 0 and spos -1 past count.
+    shared_mask: every read of full length with ONE length-mask row
+    expanded over them (row stride 0), as the block path hands it over."""
+    from bwtpu_torch.engine import _len_mask_words
+
+    L, B2, cap, max_loc = 16 * W - 5, 3000, 40000, 16
+    reads, truth = simulate_reads(GENOME, B2, read_len=L, max_mismatches=2,
+                                  n_frac=0.3 / L, seed=W)
+    codes = np.zeros((B2, L), np.int32)
+    amb = np.zeros((B2, L), np.int32)
     for i, r in enumerate(reads):
-        codes[i], amb[i] = dna.encode_with_mask(r.seq)
-    rng = np.random.default_rng(4)
-    lens = np.full(len(reads), L, np.int32)
-    lens[::5] = rng.integers(30, L, size=len(lens[::5]))
+        c, m = dna.encode_with_mask(r.seq)
+        codes[i], amb[i] = dna.revcomp_codes(c, m) if truth[i]["strand"] == "-" else (c, m)
+    rng = np.random.default_rng(W + 7 * n_slots + count)
+    lens = np.full(B2, L, np.int32)
+    if not shared_mask:
+        lens[::5] = rng.integers(1, L, size=len(lens[::5]))
     rw, ab, lm = pack_reads(codes, amb, lens)
+    seed_off = rng.integers(0, L, size=(B2, n_slots)).astype(np.int32)
+    seed_off[::9, -1] = L + rng.integers(1, 20, size=len(seed_off[::9]))
     tl = idx.text_len
-    cand = np.array([t["pos"] for t in truth], np.int32)
-    cand[1::3] = rng.integers(-20, tl + 20, size=len(cand[1::3]))
-    cand[2::6] &= ~15  # bit phase 0
-    cand[:4] = [-1, tl - L, tl - L + 1, tl]
-    cvalid = rng.random(len(cand)) < 0.9
-    args = [_t(build_text_rows(idx.text_packed, L), cuda), tl]
-    args += [_t(a, cuda) for a in (cand, cvalid, rw, ab, lm, lens)]
+    sel = np.zeros(cap, np.int32)
+    sel[:count] = np.sort(rng.choice(B2 * n_slots * max_loc, count, replace=False))
+    b = sel // max_loc // n_slots
+    start = np.array([t["pos"] for t in truth], np.int64)[b]
+    start[1::3] = rng.integers(-20, tl + 20, size=len(start[1::3]))
+    start[2::6] &= ~15  # bit phase 0
+    start[3:5] = [tl - L, tl - L + 1]
+    spos = (start + seed_off.reshape(-1)[sel // max_loc]).astype(np.int32)
+    spos[5::13] = -1
+    spos[count:] = -1
+    lm_t = (_t(_len_mask_words(L), dev).unsqueeze(0).expand(B2, rw.shape[1]) if shared_mask
+            else _t(lm, dev))
+    return (_t(build_text_rows(idx.text_packed, L), dev), tl, _t(spos, dev), _t(sel, dev),
+            torch.tensor(count, dtype=torch.int32, device=dev),
+            _t(seed_off.reshape(-1), dev), _t(rw, dev), _t(ab, dev), lm_t, _t(lens, dev),
+            max_loc, n_slots)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", list(range(1, 21)))
+@pytest.mark.parametrize("n_slots,count,shared_mask", [
+    (3, 25000, False), (1, 40000, False), (1, 0, False), (3, 40000, True)])
+def test_verify_nm_kernel_matches_plain(cuda, idx8, W, n_slots, count, shared_mask):
+    """Every instantiated read width; count 0, partial and = cap; one and
+    three seed slots; slot for slot, the slots past count included."""
+    from bwtpu_torch.kernels.verify2 import verify_nm_plain
+
+    args = _verify_nm_args(idx8, W, n_slots, count, cuda, shared_mask)
     got = verify_nm(*args)
-    want = verify_packed(*args)
+    want = verify_nm_plain(*args)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    assert (want != 255).any() and (want <= 2).any()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    nm = want[1]
+    assert (nm[count:] == 255).all()
+    if count:
+        assert (nm[:count] == 255).any() and (nm <= 2).sum() > count // 10
 
 
-def _chain_inputs(idx, dev, d: int, B: int, seed: int):
+@pytest.mark.gpu
+def test_verify_nm_refuses_a_width_without_an_instance(cuda, idx8):
+    args = list(_verify_nm_args(idx8, 2, 1, 100, cuda, False))
+    for i in (6, 7, 8):  # read planes 21 words wide
+        args[i] = args[i].repeat(1, 11)[:, :21].contiguous()
+    with pytest.raises(ValueError, match="no kernel instance"):
+        verify_nm(*args)
+
+
+def _chain_inputs(idx, dev, d: int, B: int, seed: int, L: int = L):
     """Right-aligned mixed-length patterns as the Read-list path builds
     them (genome substrings of length 0 or >= d with a few substitutions
-    and N bases) and their start intervals."""
+    and N bases, rows of L columns) and their start intervals."""
     from bwtpu_torch.io import Read
     from bwtpu_torch.engine import encode_batch
     from bwtpu_torch.kernels.search2 import start_intervals
@@ -114,14 +165,25 @@ def _chain_inputs(idx, dev, d: int, B: int, seed: int):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [0, 4, 8])
-def test_search_chain1_kernel_matches_plain(cuda, d):
+@pytest.mark.parametrize("L,d", [(100, 0), (100, 4), (100, 8), (34, 4), (37, 8), (600, 8)])
+def test_search_chain1_kernel_matches_plain(cuda, idx8, L, d):
+    """Read-list shapes, rows of 34 and 37 columns (not 16 B aligned) and
+    of 600 (restaged past 128 steps), and edge lanes: len 0, len == d, an
+    ambiguous base at the first and at the last active step, a lane that
+    straggles on its first step."""
     from bwtpu_torch.kernels.search2 import (_search_ra_chain, backward_search_ra,
                                              search_chain1)
 
-    idx = build_fm_index(GENOME, EngineConfig(sa_rate=8))
+    idx = idx8
     lat, C = _t(idx.search_lattice, cuda), _t(idx.C, cuda)
-    codes, amb, lens, sp0, ep0 = _chain_inputs(idx, cuda, d, 6000, seed=d)
+    codes, amb, lens, sp0, ep0 = _chain_inputs(idx, cuda, d, 3000 if L < 600 else 750,
+                                               seed=d + L, L=L)
+    lens[0], lens[1] = 0, d
+    lens[2:5] = L  # full rows (a short read's zero padding becomes its head)
+    amb[2, L - 1 - d] = 1  # the first active step
+    amb[3, 0] = 1  # the last active step
+    sp0[2:4], ep0[2:4] = 1000, 1001  # narrow: they reach those steps unflagged
+    sp0[4], ep0[4] = 0, idx.n  # je > j + 1 before the first step
     args = (lat, C, idx.dollar_row, codes, amb, lens, sp0, ep0, d)
     sp, ep, strag = search_chain1(*args)
     psp, pep, pstrag = _search_ra_chain(*args)
@@ -131,8 +193,11 @@ def test_search_chain1_kernel_matches_plain(cuda, d):
     assert torch.equal(strag, pstrag)
     ok = ~strag
     assert torch.equal(sp[ok], psp[ok]) and torch.equal(ep[ok], pep[ok])
-    # 200 kbp: 4-mer intervals (~800 rows) straggle, 8-mer ones (~3) not
-    assert bool(strag.any()) == (d < 8)
+    assert bool(strag[4]) and not strag[:4].any()
+    assert sp[3] == 0 == ep[3]  # an N base at the last step empties the interval
+    assert sp[0] == sp0[0] and ep[0] == ep0[0] and sp[1] == sp0[1] and ep[1] == ep0[1]
+    if L == 100:  # 200 kbp: 4-mer intervals (~800 rows) straggle, 8-mer ones (~3) not
+        assert bool(strag[5:].any()) == (d < 8)
     kt = idx.kmer_tables[d] if d else None
     got = backward_search_ra(lat, C, idx.dollar_row, idx.n,
                              None if kt is None else _t(kt, cuda), codes, amb, lens, d)

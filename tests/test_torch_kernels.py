@@ -1,8 +1,8 @@
 """The two kernel modules of bwtpu_torch against bwtpu, lane by lane.
 
-CPU: the plain-torch versions (`locate_rows`, `verify_packed`, which the
-wrappers run on CPU tensors) equal bwtpu's functions under both of its
-backends — "pallas" (the Pallas kernels, in interpret mode off the TPU)
+CPU: the plain-torch versions (`locate_rows`, `verify_packed`,
+`verify_nm_plain`, which the wrappers run on CPU tensors) equal bwtpu's
+functions under both of its backends — "pallas" (the Pallas kernels, in interpret mode off the TPU)
 and "jnp" (their jnp twins). Exact equality: everything is integer.
 
 The CUDA kernels against their plain versions on the card are in
@@ -19,10 +19,12 @@ from bwtpu.config import EngineConfig
 from bwtpu.engine import upload_index
 from bwtpu.index import build_fm_index
 from bwtpu.kernels.locate import locate_rows as j_locate_rows
+from bwtpu.kernels.common import select_lane as j_select_lane
 from bwtpu.kernels.verify2 import verify_packed as j_verify_packed
 from bwtpu.simulate import random_genome, simulate_reads
 from bwtpu_torch.kernels.locate import locate_rows, locate_walk
-from bwtpu_torch.kernels.verify2 import pack_reads, verify_nm, verify_packed
+from bwtpu_torch.kernels.verify2 import (build_text_rows, pack_reads, verify_nm,
+                                         verify_nm_plain, verify_packed)
 from bwtpu import dna
 
 torch.set_num_threads(1)
@@ -157,6 +159,76 @@ def test_locate_walk_matches_bwtpu(indexes, backend, count):
     assert (got[count:] == -1).all()
 
 
+MAX_LOC = 4
+
+
+def _compacted_candidates(idx, n_slots: int, count: int, seed: int):
+    """verify_nm's argument form: read-level rows of B2 reads (N bases,
+    some shorter than L), n_slots seed offsets per read (some past the
+    read's end), and `count` compacted candidate slots in compact order
+    over lanes' MAX_LOC slots, located at: the read's true start + its
+    seed offset (small nm), random positions, -1 (lost in locate), bit
+    phase 0, and the last two starts text_len - L and text_len - L + 1.
+    Slots past count hold sel 0 and spos -1, as compact_counts and
+    locate_walk leave them."""
+    rng = np.random.default_rng(seed)
+    cand, _, rw, ab, lm, lens = _verify_inputs(idx, seed=seed)
+    B2, tl = len(lens), idx.text_len
+    seed_off = rng.integers(0, READ_LEN, size=(B2, n_slots)).astype(np.int32)
+    seed_off[::9, -1] = READ_LEN + rng.integers(1, 20, size=len(seed_off[::9]))
+    cap = 300
+    sel = np.zeros(cap, np.int32)
+    sel[:count] = np.sort(rng.choice(B2 * n_slots * MAX_LOC, count, replace=False))
+    b = sel // MAX_LOC // n_slots
+    off = seed_off.reshape(-1)[sel // MAX_LOC]
+    start = cand[b].astype(np.int64)
+    start[1::4] = rng.integers(-10, tl + 10, size=len(start[1::4]))
+    start[2::8] = 16 * rng.integers(0, tl // 16, size=len(start[2::8]))  # ob == 0
+    start[3:5] = [tl - READ_LEN, tl - READ_LEN + 1]
+    spos = (start + off).astype(np.int32)
+    spos[5::13] = -1
+    spos[count:] = -1
+    return (_t(build_text_rows(idx.text_packed, READ_LEN)), tl, _t(spos), _t(sel),
+            torch.tensor(count, dtype=torch.int32), _t(seed_off.reshape(-1)), _t(rw),
+            _t(ab), _t(lm), _t(lens), MAX_LOC, n_slots)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("n_slots", [1, 3])
+@pytest.mark.parametrize("count", [0, 170, 300])
+def test_verify_nm_matches_bwtpu(indexes, backend, n_slots, count):
+    """verify_nm's argument form (positions, sel, a device count, seed
+    offsets and the read-level rows) against bwtpu's candidate stage
+    (engine.py:523-541, 560-566): the fused read row taken by b_idx, the
+    seed offset by one-hot, then verify_packed; slot for slot, the slots
+    past count included."""
+    idx, shard = indexes[8]
+    args = _compacted_candidates(idx, n_slots, count, seed=count + n_slots)
+    _, tl, spos, sel, cnt, seed_off, rw, ab, lm, lens, max_loc, nS = args
+    W = rw.shape[1]
+    lane = sel.numpy() // max_loc
+    b_idx = lane // nS
+    fused = jnp.concatenate([jnp.asarray(rw), jnp.asarray(ab), jnp.asarray(lm),
+                             jnp.asarray(lens)[:, None],
+                             jnp.asarray(seed_off).reshape(-1, nS)], axis=1)
+    fc = jnp.take(fused, jnp.asarray(b_idx), axis=0)
+    off_l = (j_select_lane(fc[:, 3 * W + 1:], jnp.asarray(lane - b_idx * nS), nS)
+             if nS > 1 else fc[:, 3 * W + 1])
+    want_cand = jnp.asarray(spos) - off_l
+    sel_valid = jnp.arange(sel.shape[0]) < count
+    want_nm = jax.jit(j_verify_packed, static_argnames="backend")(
+        shard.text_rows, shard.text_len, want_cand, sel_valid & (jnp.asarray(spos) >= 0),
+        fc[:, :W], fc[:, W:2 * W], fc[:, 2 * W:3 * W], fc[:, 3 * W], backend=backend)
+    before = verify_nm.launches
+    cand, nm = verify_nm(*args)
+    assert verify_nm.launches == before
+    np.testing.assert_array_equal(cand.numpy(), np.asarray(want_cand))
+    np.testing.assert_array_equal(nm.numpy(), np.asarray(want_nm))
+    assert (nm.numpy()[count:] == 255).all()
+    if count:
+        assert (nm.numpy() <= 2).any() and (nm.numpy()[:count] == 255).any()
+
+
 def test_wrappers_take_the_plain_version_on_cpu(indexes):
     idx, _ = indexes[8]
     rows, _ = _locate_inputs(idx)
@@ -167,14 +239,13 @@ def test_wrappers_take_the_plain_version_on_cpu(indexes):
         locate_rows(*_locate_args(idx), _t(rows).index_select(0, sel),
                     torch.arange(200) < 170, 8).numpy())
     assert locate_walk.launches == before
-    cand, cvalid, rw, ab, lm, lens = _verify_inputs(idx)
-    from bwtpu_torch.kernels.verify2 import build_text_rows
-
-    args = (_t(build_text_rows(idx.text_packed, READ_LEN)), idx.text_len,
-            _t(cand), _t(cvalid), _t(rw), _t(ab), _t(lm), _t(lens))
+    args = _compacted_candidates(idx, 3, 170, seed=1)
     before = verify_nm.launches
-    np.testing.assert_array_equal(verify_nm(*args).numpy(), verify_packed(*args).numpy())
+    for a, b in zip(verify_nm(*args), verify_nm_plain(*args)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert verify_nm.launches == before
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        verify_nm(*(a.to("meta") if isinstance(a, torch.Tensor) else a for a in args))
     # sa_rate 1: one ssa gather on any device, as in bwtpu; no kernel
     idx1 = build_fm_index(GENOME, EngineConfig(sa_rate=1, read_len=READ_LEN))
     shard1 = jax.tree.map(lambda x: x[0], upload_index([idx1]).shard)
