@@ -3,20 +3,29 @@
 Subcommands:
   build-index  FASTA -> index artifact: the port's copy of the builder
                of `cli.py build-index`, with its options and defaults;
-               the artifact is the one bwtpu writes and reads
-  align        index + single-end reads -> SAM, streamed in batches with
-               a checkpointed batch cursor for resume. Routed as cli.py
-               routes them: uniform-length FASTQ -> columnar blocks,
-               mixed-length FASTQ -> one block per read length, FASTA
-               (or reads longer than the index's read_len) -> Read lists.
-               --tiered (exact first, seed expansion of the rest),
-               --esc-factor and --autotune-caps as in cli.py
+               the artifact is the one bwtpu writes and reads (any number
+               of shards: one per ~256 Mbp by default, or --shards N)
+  align        index + single-end or paired reads -> SAM, streamed in
+               batches with a checkpointed batch cursor for resume. Routed
+               as cli.py routes them: uniform-length FASTQ -> columnar
+               blocks (paired: both mates stacked into one dispatch),
+               mixed-length FASTQ -> one block per read length, FASTA (or
+               reads longer than the index's read_len, or --rescore) ->
+               Read lists. --tiered (exact first, seed expansion of the
+               rest), --esc-factor, --autotune-caps, --min-insert,
+               --max-insert and --rescore (banded Smith-Waterman score of
+               each primary hit as an AS:i tag, single-end) as in cli.py
+  simulate     deterministic random genome + reads (+ pairs), byte-equal
+               to `cli.py simulate`'s files for the same arguments
 
 Examples:
   python -m bwtpu_torch.cli build-index ref.fa idx/ --sa-rate 8
   python -m bwtpu_torch.cli align idx/ reads.fq -o out.sam -k 2 --device cuda
   python -m bwtpu_torch.cli align idx/ reads.fa -o out.sam -k 2 --device cpu
   python -m bwtpu_torch.cli align idx/ reads.fq -o out.sam -k 2 --tiered --autotune-caps
+  python -m bwtpu_torch.cli align idx/ r1.fq --paired r2.fq -o out.sam -k 2
+  python -m bwtpu_torch.cli align idx/ reads.fa -o out.sam -k 2 --rescore
+  python -m bwtpu_torch.cli simulate --scale ecoli -o data/sim --pairs 1000
 
 The device defaults to cuda and never falls back: without a card the
 align command fails (pass --device cpu for the plain-torch versions).
@@ -191,11 +200,15 @@ def _align_ragged_block_stream(engine, gen, manifest, out_path, k, tiered,
 
 
 def _align_read_lists(engine, reads, manifest, out_path, k, bs, start_batch,
-                      cursor_path, mode):
-    """Read-list path (FASTA, or FASTQ the columnar readers refuse):
-    Engine.dispatch_batch / finish_batch with a few batches in flight,
-    SAM through sam.emit_sam; SAM and the cursor in order."""
+                      cursor_path, mode, rescore=False):
+    """Read-list path (FASTA, FASTQ the columnar readers refuse, or
+    --rescore): Engine.dispatch_batch / finish_batch with a few batches in
+    flight, SAM through sam.emit_sam; SAM and the cursor in order.
+    rescore: each primary hit's banded Smith-Waterman score
+    (sw.rescore_candidates, on the engine's device) as an AS:i tag."""
+    from bwtpu_torch.golden import select_primary
     from bwtpu_torch.sam import emit_sam, sam_header
+    from bwtpu_torch.sw import rescore_candidates
 
     out = sys.stdout if out_path in (None, "-") else open(out_path, mode)
     t_start = time.time()
@@ -209,7 +222,13 @@ def _align_read_lists(engine, reads, manifest, out_path, k, bs, start_batch,
             nonlocal total
             bi0, t0, chunk, handle = inflight.pop(0)
             hits = engine.finish_batch(handle)
-            emit_sam(chunk, hits, manifest.contigs, out, header=False)
+            tags = None
+            if rescore:
+                primaries = [[select_primary(h)[0]] if h else [] for h in hits]
+                scores = rescore_candidates(engine, chunk, primaries)
+                tags = [f"AS:i:{scores[(i, 0)]}" if (i, 0) in scores else None
+                        for i in range(len(chunk))]
+            emit_sam(chunk, hits, manifest.contigs, out, header=False, tags_per_read=tags)
             total += len(chunk)
             _log_batch(bi0, len(chunk), hits, t0)
             _save_cursor(cursor_path, bi0 + 1)
@@ -230,6 +249,101 @@ def _align_read_lists(engine, reads, manifest, out_path, k, bs, start_batch,
     return total, t_start
 
 
+def _align_paired_block_stream(engine, stream1, stream2, manifest, out_path, k, tiered,
+                               bs, start_batch, cursor_path, mode, min_insert, max_insert):
+    """Columnar paired path: both mates of a chunk stack on the batch axis
+    into ONE dispatch (pad_to = 2 * bs); pairing is vectorised
+    (results.select_pairs) and the chunk emits through one interleaved
+    C-formatter call (samfast.emit_paired). --tiered is passed through as
+    cli.py does (reference fault C.1: pairs are chosen from hit lists the
+    stratum contract may cut short). finish_block and the pairing run on
+    one worker thread; SAM and the cursor are written in order."""
+    from bwtpu_torch.readblock import concat_blocks
+    from bwtpu_torch.results import (ContigTable, select_pairs, select_primary_flat,
+                                     split_flat)
+    from bwtpu_torch.sam import sam_header
+    from bwtpu_torch.samfast import emit_paired
+
+    ctable = ContigTable.build(manifest.contigs)
+    out = (sys.stdout.buffer if out_path in (None, "-")
+           else open(out_path, mode + "b"))
+    t_start = time.time()
+    total = 0
+    ex = ThreadPoolExecutor(max_workers=1)
+
+    def process(sub1, sub2, handle):
+        flat = engine.finish_block(handle)
+        f1, f2 = split_flat(flat, sub1.n)
+        choice = select_pairs(f1, f2, sub1.L, sub2.L, min_insert, max_insert)
+        return emit_paired(sub1, sub2, f1, f2, choice, select_primary_flat(f1),
+                           select_primary_flat(f2), ctable)
+
+    try:
+        if mode == "w":
+            out.write(sam_header(manifest.contigs).encode())
+        inflight = []
+
+        def drain_one():
+            nonlocal total
+            bi0, t0, n_pair, fut = inflight.pop(0)
+            out.write(fut.result())
+            total += 2 * n_pair
+            print(json.dumps({
+                "event": "batch", "batch": bi0, "reads": 2 * n_pair,
+                "reads_per_s": round(2 * n_pair / (time.time() - t0), 1),
+                "ms": round((time.time() - t0) * 1e3, 1),
+            }), file=sys.stderr)
+            _save_cursor(cursor_path, bi0 + 1)
+
+        for bi, (sub1, sub2) in enumerate(zip(stream1, stream2), start=start_batch):
+            if sub1.n != sub2.n:
+                raise SystemExit("paired files differ in read count")
+            handle = engine.dispatch_block(concat_blocks(sub1, sub2), k, pad_to=2 * bs,
+                                           tiered=tiered)
+            inflight.append((bi, time.time(), sub1.n, ex.submit(process, sub1, sub2, handle)))
+            if len(inflight) > 3:
+                drain_one()
+        while inflight:
+            drain_one()
+    finally:
+        ex.shutdown(wait=True)
+        if out is not sys.stdout.buffer:
+            out.close()
+    return total, t_start
+
+
+def _align_paired_read_lists(engine, reads, reads2, manifest, out_path, k, bs,
+                             start_batch, cursor_path, mode, min_insert, max_insert):
+    """Read-list paired path (FASTA, mates the columnar readers refuse,
+    or --rescore, which adds no tag here, as in cli.py): align_batch on
+    each mate's chunk, then sam.pair_and_emit_sam."""
+    from bwtpu_torch.sam import pair_and_emit_sam, sam_header
+
+    if len(reads2) != len(reads):
+        raise SystemExit("paired files differ in read count")
+    out = sys.stdout if out_path in (None, "-") else open(out_path, mode)
+    t_start = time.time()
+    total = 0
+    try:
+        if mode == "w":
+            out.write(sam_header(manifest.contigs))
+        for bi in range(0, len(reads), bs):
+            if bi // bs < start_batch:
+                continue
+            t0 = time.time()
+            r1, r2 = reads[bi : bi + bs], reads2[bi : bi + bs]
+            h1, h2 = engine.align_batch(r1, k=k), engine.align_batch(r2, k=k)
+            pair_and_emit_sam(list(zip(r1, r2)), h1, h2, manifest.contigs, out,
+                              min_insert=min_insert, max_insert=max_insert, header=False)
+            total += 2 * len(r1)
+            _log_batch(bi // bs, 2 * len(r1), h1 + h2, t0)
+            _save_cursor(cursor_path, bi // bs + 1)
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return total, t_start
+
+
 def cmd_align(args) -> dict:
     """Align; returns the summary that is also printed to stderr."""
     from bwtpu_torch.index import load_index
@@ -237,10 +351,8 @@ def cmd_align(args) -> dict:
     from bwtpu_torch.readblock import read_fastq_stream, read_fastq_stream_ragged
     from bwtpu_torch.engine import Engine
 
-    if args.paired:
-        raise NotImplementedError("paired-end align is ROADMAP slice 7 of the port")
-    if args.rescore:
-        raise NotImplementedError("--rescore is ROADMAP slice 7 of the port")
+    if args.profile:
+        _not_ported("align --profile", 9)(args)
     shards, manifest = load_index(args.index)
     if args.esc_factor is not None:
         shards = [dataclasses.replace(s, config=s.config.replace(esc_factor=args.esc_factor))
@@ -260,20 +372,36 @@ def cmd_align(args) -> dict:
         log.info("resuming at batch %d", start_batch)
     mode = "a" if (args.resume and start_batch > 0) else "w"
     where = (manifest, args.out, k)
+    inserts = (args.min_insert, args.max_insert)
 
-    res = read_fastq_stream(args.reads, bs, start=start_batch)
-    if res is not None and 0 < res[1] <= read_len:
-        total, t_start = _align_block_stream(
-            engine, res[2], *where, args.tiered, bs, start_batch, cursor_path, mode)
-        return _print_summary(engine, total, t_start)
-    if res is None:
-        resr = read_fastq_stream_ragged(args.reads, bs, start=start_batch)
-        if resr is not None and 0 < resr[1] <= read_len:
-            total, t_start = _align_ragged_block_stream(
-                engine, resr[2], *where, args.tiered, start_batch, cursor_path, mode)
+    if not args.rescore:  # --rescore runs on the Read lists
+        res = read_fastq_stream(args.reads, bs, start=start_batch)
+        if args.paired:
+            res2 = read_fastq_stream(args.paired, bs, start=start_batch)
+            if (res is not None and res2 is not None and res[:2] == res2[:2]
+                    and 0 < res[1] <= read_len):
+                total, t_start = _align_paired_block_stream(
+                    engine, res[2], res2[2], *where, args.tiered, bs, start_batch,
+                    cursor_path, mode, *inserts)
+                return _print_summary(engine, total, t_start)
+        elif res is not None and 0 < res[1] <= read_len:
+            total, t_start = _align_block_stream(
+                engine, res[2], *where, args.tiered, bs, start_batch, cursor_path, mode)
             return _print_summary(engine, total, t_start)
-    total, t_start = _align_read_lists(
-        engine, read_reads(args.reads), *where, bs, start_batch, cursor_path, mode)
+        elif res is None:
+            resr = read_fastq_stream_ragged(args.reads, bs, start=start_batch)
+            if resr is not None and 0 < resr[1] <= read_len:
+                total, t_start = _align_ragged_block_stream(
+                    engine, resr[2], *where, args.tiered, start_batch, cursor_path, mode)
+                return _print_summary(engine, total, t_start)
+    if args.paired:
+        total, t_start = _align_paired_read_lists(
+            engine, read_reads(args.reads), read_reads(args.paired), *where, bs,
+            start_batch, cursor_path, mode, *inserts)
+    else:
+        total, t_start = _align_read_lists(
+            engine, read_reads(args.reads), *where, bs, start_batch, cursor_path, mode,
+            rescore=args.rescore)
     return _print_summary(engine, total, t_start)
 
 
@@ -298,6 +426,41 @@ def _autotune(engine, reads_path, k, bs) -> None:
     lf = engine.autotune_caps(sample, k, pad_to=bs)
     print(json.dumps({"event": "autotune", "loc_factor": lf,
                       "hit_factor": engine._hf(k)}), file=sys.stderr)
+
+
+def cmd_simulate(args):
+    """Random genome (ref.fa), simulated reads (reads.fq, truth.json) and,
+    with --pairs, FR pairs (reads_1.fq, reads_2.fq, truth_pairs.json):
+    cli.py's cmd_simulate on the port's host copies."""
+    from bwtpu_torch.io import write_fasta, write_fastq
+    from bwtpu_torch.simulate import (CHR21_SCALE, ECOLI_SCALE, PHIX_SCALE, random_genome,
+                                      simulate_pairs, simulate_reads)
+
+    scale = {"phix": PHIX_SCALE, "ecoli": ECOLI_SCALE, "chr21": CHR21_SCALE}.get(args.scale)
+    n = scale if scale else int(args.scale)
+    os.makedirs(args.out, exist_ok=True)
+    genome = random_genome(n, seed=args.seed)
+    write_fasta(os.path.join(args.out, "ref.fa"), [("sim1", genome)])
+    reads, truth = simulate_reads(
+        genome, args.n_reads, read_len=args.read_len, max_mismatches=args.mismatches,
+        n_frac=args.n_frac, seed=args.seed + 1)
+    write_fastq(os.path.join(args.out, "reads.fq"), reads)
+    with open(os.path.join(args.out, "truth.json"), "w") as f:
+        json.dump(truth, f)
+    if args.pairs:
+        pairs, ptruth = simulate_pairs(genome, args.pairs, read_len=args.read_len,
+                                       seed=args.seed + 2)
+        write_fastq(os.path.join(args.out, "reads_1.fq"), [p[0] for p in pairs])
+        write_fastq(os.path.join(args.out, "reads_2.fq"), [p[1] for p in pairs])
+        with open(os.path.join(args.out, "truth_pairs.json"), "w") as f:
+            json.dump(ptruth, f)
+    print(f"simulated {n} bp genome + {args.n_reads} reads -> {args.out}")
+
+
+def _not_ported(what: str, slice_no: int):
+    def refuse(args):
+        raise NotImplementedError(f"{what} is ROADMAP slice {slice_no} of the port")
+    return refuse
 
 
 def _print_summary(engine, total, t_start) -> dict:
@@ -363,7 +526,9 @@ def main(argv=None):
                    help="torch device: cuda (the kernels) or cpu (plain torch)")
     a.add_argument("--resume", action="store_true",
                    help="resume from <out>.cursor after an interrupted run")
-    a.add_argument("--paired", help="not covered yet (ROADMAP slice 7)")
+    a.add_argument("--paired", help="mate FASTQ for paired-end")
+    a.add_argument("--min-insert", type=int, default=0)
+    a.add_argument("--max-insert", type=int, default=1000)
     a.add_argument("--tiered", action="store_true",
                    help="exact-first tiered inexact search: only reads with no "
                         "exact hit escalate to the seed expansion (stratum "
@@ -374,10 +539,30 @@ def main(argv=None):
     a.add_argument("--autotune-caps", action="store_true",
                    help="probe the first chunk and size the candidate/hit "
                         "capacities to measured occupancy")
-    a.add_argument("--rescore", action="store_true", help="not covered yet (ROADMAP slice 7)")
+    a.add_argument("--rescore", action="store_true",
+                   help="banded Smith-Waterman rescore of each primary hit; adds "
+                        "an AS:i tag (single-end, Read-list path)")
+    a.add_argument("--profile", help="not covered yet (ROADMAP slice 9)")
     a.set_defaults(fn=cmd_align)
 
-    args = p.parse_args(argv)
+    sm = sub.add_parser("simulate", help="generate test genome + reads")
+    sm.add_argument("--scale", default="phix", help="phix|ecoli|chr21|<bp>")
+    sm.add_argument("-o", "--out", default="data/sim")
+    sm.add_argument("--n-reads", type=int, default=1000)
+    sm.add_argument("--read-len", type=int, default=100)
+    sm.add_argument("--mismatches", type=int, default=2)
+    sm.add_argument("--n-frac", type=float, default=0.0)
+    sm.add_argument("--pairs", type=int, default=0)
+    sm.add_argument("--seed", type=int, default=0)
+    sm.set_defaults(fn=cmd_simulate)
+
+    for name, slice_no in (("bench", 9), ("scaling", 8)):
+        sp = sub.add_parser(name, help=f"not covered yet (ROADMAP slice {slice_no})")
+        sp.set_defaults(fn=_not_ported(f"the {name} subcommand", slice_no))
+
+    args, rest = p.parse_known_args(argv)
+    if rest and args.cmd not in ("bench", "scaling"):  # their options refuse with them
+        p.error(f"unrecognized arguments: {' '.join(rest)}")
     return args.fn(args)
 
 

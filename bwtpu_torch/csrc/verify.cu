@@ -15,7 +15,11 @@
 // neighbours in compact order, so those rows come from L1 or L2). So:
 //   - W is a template parameter (instances for W = 1 .. kMaxW, the wrapper
 //     dispatches): the window loop unrolls and every load of a candidate is
-//     issued before the first XOR;
+//     issued before the first XOR. Reads wider than kMaxW words (over 320
+//     bases) take verify_nm_wide_kernel, which has W at run time and streams
+//     the window a word at a time (window_nm of verify.cuh) from the row, so
+//     it holds no array and needs no local memory, at the price of loads
+//     issued one word after another;
 //   - the text-row load needs only the candidate's start (not the read's
 //     length) to stay in range, so it is issued together with the read's
 //     rows and length; the length test comes after;
@@ -52,7 +56,7 @@ using bwtpu::kNmInvalid;
 using bwtpu::window_nm;
 
 constexpr int kThreads = 256;
-constexpr int kMaxW = 20;  // widest read with a verify_nm instance: 320 bases
+constexpr int kMaxW = 20;  // widest read with a template instance: 320 bases
 
 // The read-level row of one candidate: three W-word planes with their row
 // strides in words (the layout of verify2.pack_reads).
@@ -133,6 +137,38 @@ __global__ void verify_nm_kernel(const int* __restrict__ text_rows, int row_widt
   nm_out[j] = (long long)c + len <= text_len ? nm : kNmInvalid;
 }
 
+// Any W (the wrapper sends W > kMaxW here): the same candidate, validity
+// and length rules as verify_nm_kernel, the window read word by word.
+__global__ void verify_nm_wide_kernel(const int* __restrict__ text_rows, int row_width,
+                                      long long text_len, const int* __restrict__ spos,
+                                      const int* __restrict__ sel,
+                                      const int* __restrict__ count,
+                                      const int* __restrict__ seed_off, ReadRows rr,
+                                      const int* __restrict__ lens, int W, int max_loc,
+                                      int n_slots, int cap, int* __restrict__ cand_out,
+                                      int* __restrict__ nm_out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= cap) return;
+  const int lane = __ldg(sel + j) / max_loc;
+  const int b = lane / n_slots;
+  const int sp = __ldg(spos + j);
+  const bool live = j < __ldg(count) && sp >= 0;
+  const int c = sp - __ldg(seed_off + lane);
+  cand_out[j] = c;
+  if (!(live && c >= 0 && (long long)c + __ldg(lens + b) <= text_len)) {
+    nm_out[j] = kNmInvalid;
+    return;
+  }
+  const int w = c >> 4;
+  const int sub = w & 7;
+  const int* row = text_rows + (size_t)(w >> 3) * row_width;
+  auto word_at = [&](int q) -> uint32_t {
+    return sub + q < row_width ? (uint32_t)__ldg(row + sub + q) : 0u;
+  };
+  nm_out[j] = window_nm(word_at, (uint32_t)(c & 15) * 2u, rr.rw + (size_t)b * rr.s_rw,
+                        rr.ab + (size_t)b * rr.s_ab, rr.lm + (size_t)b * rr.s_lm, W);
+}
+
 template <int W>
 cudaError_t launch_nm(int w, bool vec_rows, dim3 grid, cudaStream_t stream,
                       const int* text_rows, int row_width, long long text_len,
@@ -140,7 +176,10 @@ cudaError_t launch_nm(int w, bool vec_rows, dim3 grid, cudaStream_t stream,
                       const int* seed_off, ReadRows rr, const int* lens, int max_loc,
                       int n_slots, int cap, int* cand, int* nm) {
   if constexpr (W > kMaxW) {
-    return cudaErrorInvalidValue;
+    verify_nm_wide_kernel<<<grid, kThreads, 0, stream>>>(text_rows, row_width, text_len,
+                                                         spos, sel, count, seed_off, rr, lens,
+                                                         w, max_loc, n_slots, cap, cand, nm);
+    return cudaSuccess;
   } else {
     if (w != W) {
       return launch_nm<W + 1>(w, vec_rows, grid, stream, text_rows, row_width, text_len,
@@ -196,8 +235,6 @@ __global__ void verify_locv_kernel(const int* __restrict__ locv,
 }
 
 }  // namespace
-
-extern "C" int bwtpu_verify_nm_max_width() { return kMaxW; }
 
 // vec_rows: the text rows are 16 B aligned with a width that is a multiple
 // of 4 words.

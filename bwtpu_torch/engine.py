@@ -1,6 +1,8 @@
 """Alignment engine on torch tensors (counterpart of bwtpu/engine.py).
 
-One index shard on one torch device. Two entry points, as in bwtpu:
+One or more index shards on one torch device, each dispatched in turn
+(bwtpu's list form; its stacked-vmap and fused-list forms are not
+ported). Two entry points, as in bwtpu:
 
   dispatch_block / finish_block   columnar ReadBlocks of one read length
                                   (tiered=True: exact first, then the
@@ -26,11 +28,11 @@ table (d = 0) run the 1-step pipelines with dense outputs:
   (search_chain1 kernel, then search_chain2 on the stragglers) ->
   compaction -> locate [+ verify at k > 0] -> scatter back
 
-The host assembles hits with results.py. Outputs equal bwtpu's: the
-same hit sets, truncation marks, heals and SAM bytes. Shapes not covered
-yet raise NotImplementedError naming their ROADMAP slice. Torch runs
-eagerly, so the reference's jit program cache has no counterpart, and
-the packed overflow bitmap stays a bool row vector.
+The host assembles every shard's hits with results.py (global positions
+in int64 from each shard's offset, overlap hits deduplicated). Outputs
+equal bwtpu's: the same hit sets, truncation marks, heals and SAM bytes.
+Torch runs eagerly, so the reference's jit program cache has no
+counterpart, and the packed overflow bitmap stays a bool row vector.
 """
 
 from __future__ import annotations
@@ -87,31 +89,34 @@ class Shard(NamedTuple):
     kmer_tables: dict  # {depth: int32[4^depth, 2]}
 
 
-def upload_index(shards: list[FMIndex], device, locv: bool | None = None) -> Shard:
-    """Put one FMIndex's arrays on `device` as a Shard.
+def upload_index(shards: list[FMIndex], device, locv: bool | None = None) -> list[Shard]:
+    """Put each FMIndex's arrays on `device`: one Shard per index shard
+    (bwtpu's list form, upload_index(stacked=False), without its padding
+    to common shapes: the port runs eagerly, so no compiled program is
+    shared between shards).
 
-    locv: build the fused locate+verify table (one row = SA value +
-    verify window, verify2.build_locv_rows). None = auto, as in bwtpu:
-    on when sa_rate == 1, the multi-step lattice is present and the
-    table fits LOCV_MAX_BYTES (~300 MB at E. coli scale, L 100)."""
-    if len(shards) != 1:
-        raise NotImplementedError(
-            f"{len(shards)} index shards: several shards on one GPU are "
-            "ROADMAP slice 5 of the port")
-    s = shards[0]
-    have_latk = s.occk_lattice is not None
-    read_len = s.config.read_len
+    As in bwtpu, the multi-step lattice is used only when every shard has
+    one of the same width (else every shard gets the (1, 1) dummy), and
+    the k-mer tables are the depths every shard has. locv: build the
+    fused locate+verify table (one row = SA value + verify window,
+    verify2.build_locv_rows). None = auto, as in bwtpu: on when sa_rate
+    == 1, the multi-step lattice is present and the tables of all shards
+    fit LOCV_MAX_BYTES together (~300 MB at E. coli scale, L 100)."""
+    have_latk = all(s.occk_lattice is not None for s in shards) and len(
+        {s.occk_lattice.shape[1] for s in shards}) == 1
+    sa_rate, read_len = shards[0].config.sa_rate, shards[0].config.read_len
     if locv is None:
-        locv = (s.config.sa_rate == 1 and have_latk
-                and s.n * locv_row_width(read_len) * 4 <= LOCV_MAX_BYTES)
-    if locv and s.config.sa_rate != 1:
+        locv = (sa_rate == 1 and have_latk
+                and sum(s.n for s in shards) * locv_row_width(read_len) * 4 <= LOCV_MAX_BYTES)
+    if locv and sa_rate != 1:
         raise ValueError("locv table requires sa_rate == 1 (ssa must "
                          "be the full row-ordered suffix array)")
+    depths = sorted(set.intersection(*[set(s.kmer_tables) for s in shards]))
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
 
-    return Shard(
+    return [Shard(
         lattice=put(s.search_lattice),
         latk=put(s.occk_lattice if have_latk else np.zeros((1, 1), np.int32)),
         latk_inv=put(s.occk_invalid if have_latk else np.full(4, -1, np.int32)),
@@ -123,8 +128,8 @@ def upload_index(shards: list[FMIndex], device, locv: bool | None = None) -> Sha
         text_rows=put(build_text_rows(s.text_packed, read_len)),
         locv=put(build_locv_rows(s.text_packed, s.ssa, read_len) if locv
                  else np.zeros((1, 1), np.int32)),
-        kmer_tables={dd: put(t) for dd, t in s.kmer_tables.items()},
-    )
+        kmer_tables={dd: put(s.kmer_tables[dd]) for dd in depths},
+    ) for s in shards]
 
 
 def pick_kmer_depth(available: list[int], min_len: int) -> int:
@@ -746,10 +751,14 @@ def _fetch_all(tensors) -> list[np.ndarray]:
 
 
 class Engine:
-    """Single-shard alignment engine on one torch device.
+    """Alignment engine over one or more index shards on one torch device.
 
-    device="cuda" runs the CUDA kernels and raises when CUDA is absent;
-    device="cpu" runs their plain-torch versions (the tests)."""
+    Every shard is dispatched in turn (bwtpu's list form with
+    vmap_shards=False, fuse_shards=False) on the same device-resident
+    reads, and the host assembles all shards' hits with their text
+    lengths and global offsets. device="cuda" runs the CUDA kernels and
+    raises when CUDA is absent; device="cpu" runs their plain-torch
+    versions (the tests)."""
 
     def __init__(self, shards: list[FMIndex], device="cuda"):
         self.device = torch.device(device)
@@ -757,7 +766,7 @@ class Engine:
             raise RuntimeError("Engine(device='cuda'): no CUDA device is available")
         self.shards = shards
         self.config = shards[0].config
-        self.shard = upload_index(shards, self.device)
+        self.dev_shards = upload_index(shards, self.device)
         self.kmer_depths = sorted(shards[0].kmer_tables)
         self.stats = BatchStats()
         # occupancy channel: max observed candidate-stage and hit live
@@ -769,9 +778,20 @@ class Engine:
         self._lf_override: dict = {}
         self._hf_override: dict = {}
 
+    def _text_lens(self) -> list[int]:
+        return [sh.text_len for sh in self.shards]
+
+    def _offsets(self) -> list[int]:
+        return [sh.shard_offset for sh in self.shards]
+
+    def _multistep(self, d: int) -> bool:
+        """Every shard has the same lattice form (upload_index)."""
+        return _has_multistep(self.dev_shards[0], d)
+
     def _wide_steps(self, d: int) -> int:
         """Two-gather 1-step narrowings before the multi-step loop, sized
-        so E[width] = n / 4^d falls to <= 8 (0 at bacterial scale)."""
+        so E[width] = n / 4^d of the largest shard falls to <= 8 (0 at
+        bacterial scale)."""
         if d <= 0:
             return 0
         lam = max(sh.n for sh in self.shards) / 4.0**d
@@ -788,13 +808,13 @@ class Engine:
     def autotune_caps(self, block, k: int | None = None,
                       margin: float = 1.12, pad_to: int | None = None):
         """Occupancy-adaptive capacities, as in bwtpu: dispatch `block`
-        once at the current caps, observe the candidate-stage live
-        fraction, and point this k's loc_factor at the smallest ladder
-        value covering live * margin, never above the configured ceiling
-        (healing absorbs batches that beat the margin); the hit buffer
-        likewise from the live hit fraction. Returns the chosen
-        loc_factor. A probe that overflowed even after healing keeps the
-        ceilings."""
+        once at the current caps (every shard), observe the largest
+        shard's candidate-stage live fraction, and point this k's
+        loc_factor at the smallest ladder value covering live * margin,
+        never above the configured ceiling (healing absorbs batches that
+        beat the margin); the hit buffer likewise from the live hit
+        fraction. Returns the chosen loc_factor. A probe that overflowed
+        even after healing keeps the ceilings."""
         k = self.config.k if k is None else k
         self._cand_live_frac.pop(k, None)
         self._hit_live_frac.pop(k, None)
@@ -846,29 +866,27 @@ class Engine:
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _run_packed(self, rw, ab, L: int, k: int, d: int, level: int):
-        """Packed forward reads -> the packed pipeline's outputs: compacted
-        when _has_multistep(shard, d), else the 1-step fallback's dense
-        outputs."""
+    def _run_packed(self, shard: Shard, rw, ab, L: int, k: int, d: int, level: int):
+        """Packed forward reads (on the device) -> one shard's packed
+        pipeline outputs: compacted when the multi-step path runs, else the
+        1-step fallback's dense outputs."""
         mh, mc, lf, _ = self._caps(k, level)
         opts = dict(sa_rate=self.config.sa_rate, loc_factor=lf,
                     min_trips=self.config.min_trips, cap_scale=1 << level,
                     wide_steps=self._wide_steps(d))
-        rw, ab = self._put(rw), self._put(ab)
         if k == 0:
-            return exact_pipeline_packed(self.shard, rw, ab, L=L, d=d,
-                                         max_hits=mh, **opts)
-        return inexact_pipeline_packed(self.shard, rw, ab, L=L, k=k, d=d,
-                                       max_loc=mc, **opts)
+            return exact_pipeline_packed(shard, rw, ab, L=L, d=d, max_hits=mh, **opts)
+        return inexact_pipeline_packed(shard, rw, ab, L=L, k=k, d=d, max_loc=mc, **opts)
 
-    def _run_tiered(self, rw, ab, L: int, k: int, level: int):
-        """Packed forward reads -> tiered_pipeline_packed's 12 outputs:
-        tier 1 at the k = 0 caps, tier 2 at this k's caps."""
+    def _run_tiered(self, shard: Shard, rw, ab, L: int, k: int, level: int):
+        """Packed forward reads (on the device) -> one shard's
+        tiered_pipeline_packed outputs: tier 1 at the k = 0 caps, tier 2
+        at this k's caps."""
         mh0, _, lf0, _ = self._caps(0, level)
         _, mc, lf, _ = self._caps(k, level)
         d_full = pick_kmer_depth(self.kmer_depths, L)
         return tiered_pipeline_packed(
-            self.shard, self._put(rw), self._put(ab), L=L, k=k, d=d_full,
+            shard, rw, ab, L=L, k=k, d=d_full,
             d_seed=pick_kmer_depth(self.kmer_depths, L // (k + 1)),
             max_hits=mh0, max_cand=mc, sa_rate=self.config.sa_rate,
             loc_factor=lf0, k2_loc_factor=lf, esc_factor=self.config.esc_factor,
@@ -879,10 +897,11 @@ class Engine:
     # ---- Read lists (align_batch, align_all) ----
 
     def dispatch_batch(self, reads: list[Read], k: int, _level: int = 0):
-        """Encode + launch device work for one batch; returns a handle for
-        finish_batch. Uniform-length batches no longer than read_len run
-        the packed pipelines on 2-bit packed forward reads; mixed lengths
-        go through encode_batch and the 1-step pipelines (dense).
+        """Encode + launch device work for one batch on every shard;
+        returns a handle for finish_batch. Uniform-length batches no
+        longer than read_len run the packed pipelines on 2-bit packed
+        forward reads; mixed lengths go through encode_batch and the 1-step
+        pipelines (dense). The reads go to the device once for all shards.
 
         _level: self-healing escalation level — all capacities run at
         2**_level x their configured values."""
@@ -896,9 +915,10 @@ class Engine:
                                    m.reshape(B, L).astype(np.int32),
                                    np.full(B, L, np.int32))
             d = pick_kmer_depth(self.kmer_depths, L if k == 0 else L // (k + 1))
-            out = self._run_packed(rw, ab, L, k, d, _level)
-            mode = "compact" if _has_multistep(self.shard, d) else "dense"
-            return (reads, B, k, out, time.perf_counter(), mode, _level)
+            rw, ab = self._put(rw), self._put(ab)
+            outs = [self._run_packed(sh, rw, ab, L, k, d, _level) for sh in self.dev_shards]
+            mode = "compact" if self._multistep(d) else "dense"
+            return (reads, B, k, outs, time.perf_counter(), mode, _level)
 
         enc, B = encode_batch(self.config, reads, k)
         mh, mc, lf, _ = self._caps(k, _level)
@@ -906,23 +926,23 @@ class Engine:
                     cap_scale=1 << _level)
         if k == 0:
             d = pick_kmer_depth(self.kmer_depths, enc.min_len)
-            out = exact_pipeline(
-                self.shard, *map(self._put, (enc.ra_codes, enc.ra_amb, enc.lens)),
-                d=d, max_hits=mh, **opts)
+            args = tuple(map(self._put, (enc.ra_codes, enc.ra_amb, enc.lens)))
+            outs = [exact_pipeline(sh, *args, d=d, max_hits=mh, **opts)
+                    for sh in self.dev_shards]
         else:
             d = pick_kmer_depth(self.kmer_depths, enc.min_seed_len)
-            out = inexact_pipeline(
-                self.shard, *map(self._put, (
-                    enc.seed_ra, enc.seed_amb, enc.seed_lens, enc.seed_off,
-                    enc.read_words, enc.amb_bits, enc.len_mask, enc.lens)),
-                k=k, d=d, max_loc=mc, **opts)
-        return (reads, B, k, out, time.perf_counter(), "dense", _level)
+            args = tuple(map(self._put, (
+                enc.seed_ra, enc.seed_amb, enc.seed_lens, enc.seed_off,
+                enc.read_words, enc.amb_bits, enc.len_mask, enc.lens)))
+            outs = [inexact_pipeline(sh, *args, k=k, d=d, max_loc=mc, **opts)
+                    for sh in self.dev_shards]
+        return (reads, B, k, outs, time.perf_counter(), "dense", _level)
 
     def _maybe_heal_batch(self, reads, k, overflow, compact_over, level):
         """Self-healing re-dispatch: when any row overflowed a capacity
-        (interval / compaction / fixup) and heal levels remain, re-run the
-        whole batch with every cap doubled. Returns the healed hits or
-        None."""
+        (interval / compaction / fixup) on any shard and heal levels
+        remain, re-run the whole batch with every cap doubled. Returns the
+        healed hits or None."""
         n_over = int((overflow.sum(axis=0) > 0).sum())
         cfg = self.config
         if (n_over or compact_over) and cfg.heal_overflow and (
@@ -940,21 +960,22 @@ class Engine:
 
     def finish_batch(self, handle) -> list[list[Hit]]:
         """Materialize a dispatch_batch handle -> per-read Hit lists."""
-        reads, B, k, out, t_disp, mode, level = handle
+        reads, B, k, outs, t_disp, mode, level = handle
         t1 = time.perf_counter()
         mh, mc, lf, hf = self._caps(k, level)
         Ct = (k + 1) * mc if k else mh
         if mode == "compact":
-            cand_c, nm_c, sel, count, overflow, co = out
-            cnt = int(count)
-            shard_comp = [(_np(cand_c[:cnt]), _np(nm_c[:cnt]), _np(sel[:cnt]), cnt)]
-        elif k == 0:
-            pos, valid, overflow, co = out
-            nm = None
-        else:
-            pos, nm, valid, overflow, co = out
-        overflow = _np(overflow)[None]  # (shards, 2B)
-        compact_over = int(co)
+            # (cand_c, nm_c, sel, count, overflow, comp_over) per shard
+            counts = torch.stack([o[3] for o in outs]).tolist()
+            shard_comp = [(_np(o[0][:c]), _np(o[1][:c]), _np(o[2][:c]), c)
+                          for o, c in zip(outs, counts)]
+            overflow = np.stack([_np(o[4]) for o in outs])  # (shards, 2B)
+            compact_over = int(sum(_np(o[5]) for o in outs))
+        else:  # dense: (pos, valid, overflow, co) or (pos, nm, valid, overflow, co)
+            outs = [o if k else (o[0], None, *o[1:]) for o in outs]
+            pos, valid, overflow = (np.stack([_np(o[i]) for o in outs]) for i in (0, 2, 3))
+            nm = np.stack([_np(o[1]) for o in outs]) if k else None
+            compact_over = int(sum(_np(o[4]) for o in outs))
         self.stats.device_s += time.perf_counter() - t_disp
         healed = self._maybe_heal_batch(reads, k, overflow, compact_over, level)
         if healed is not None:
@@ -966,13 +987,10 @@ class Engine:
                     "after %d heals; results may be incomplete — raise "
                     "loc_factor or max_heals", compact_over, level,
                 )
-            sh = self.shards[0]
             hits = assemble_hits_compact(reads, B, shard_comp, k, Ct,
-                                         [sh.text_len], [sh.shard_offset])
+                                         self._text_lens(), self._offsets())
             return self._finish_stats(reads, hits, overflow, compact_over, t1)
-        return self._assemble(reads, B, _np(pos)[None],
-                              None if nm is None else _np(nm)[None],
-                              _np(valid)[None], overflow, compact_over, t1)
+        return self._assemble(reads, B, pos, nm, valid, overflow, compact_over, t1)
 
     def align_batch(self, reads: list[Read], k: int | None = None) -> list[list[Hit]]:
         if not reads:
@@ -987,9 +1005,7 @@ class Engine:
                 "results may be incomplete — raise loc_factor/max_cand",
                 compact_over,
             )
-        sh = self.shards[0]
-        out = assemble_hits(reads, B, pos, nm, valid, [sh.text_len],
-                            [sh.shard_offset])
+        out = assemble_hits(reads, B, pos, nm, valid, self._text_lens(), self._offsets())
         return self._finish_stats(reads, out, overflow, compact_over, t1)
 
     def _finish_stats(self, reads, out, overflow, compact_over, t1):
@@ -1029,14 +1045,15 @@ class Engine:
                        pad_to: int | None = None, _level: int = 0,
                        tiered: bool = False):
         """Run a uniform-length columnar ReadBlock (readblock.py)
-        through the packed pipelines. pad_to keeps batch shapes fixed
-        across a stream; pad rows are all-ambiguous and die at the start
-        table. Output modes, as in bwtpu: "hits" (one compacted hit
-        list), "compact" when the hit payload sel*4 + nm would overflow
-        int32, "dense" on the 1-step fallback, "tiered" for tiered=True
-        at k > 0 (tiered_pipeline_packed; without the multi-step lattice
-        the full inexact pipeline runs instead, whose results are a
-        superset of the tiered contract). Returns a handle for
+        through the packed pipelines of every shard. pad_to keeps batch
+        shapes fixed across a stream; pad rows are all-ambiguous and die at
+        the start table. Output modes, as in bwtpu: "hits" (one compacted
+        hit list per shard), "compact" when the hit payload sel*4 + nm
+        would overflow int32, "dense" on the 1-step fallback, "tiered" for
+        tiered=True at k > 0 (tiered_pipeline_packed; without the
+        multi-step lattice the full inexact pipeline runs instead, whose
+        results are a superset of the tiered contract). The packed reads
+        go to the device once for all shards. Returns a handle for
         finish_block."""
         from bwtpu_torch.readblock import pack_block
 
@@ -1050,31 +1067,38 @@ class Engine:
             W = rw.shape[1]
             rw = np.concatenate([rw, np.zeros((Bp - block.n, W), np.int32)])
             ab = np.concatenate([ab, np.full((Bp - block.n, W), 0x55555555, np.int32)])
+        rw, ab = self._put(rw), self._put(ab)
         d = pick_kmer_depth(self.kmer_depths, L if k == 0 else L // (k + 1))
-        compact_out = _has_multistep(self.shard, d)
+        compact_out = self._multistep(d)
         if tiered and k > 0 and compact_out:
-            out = self._run_tiered(rw, ab, L, k, _level)
-            return ("block", block, Bp, k, out, time.perf_counter(), "tiered", _level)
+            outs = [self._run_tiered(sh, rw, ab, L, k, _level) for sh in self.dev_shards]
+            return ("block", block, Bp, k, outs, time.perf_counter(), "tiered", _level)
         if tiered and k > 0:
             log.debug("tiered dispatch unavailable without the multi-step "
                       "lattice; running the full inexact pipeline")
         mh, mc, lf, hf = self._caps(k, _level)
         Ct = (k + 1) * mc if k else mh
         hits = compact_out and 2 * Bp * Ct * 4 < HIT_PAYLOAD_MAX
-        out = self._run_packed(rw, ab, L, k, d, _level)
-        if hits:
-            hit_cap = min(out[2].shape[0], compact_cap(2 * Bp, hf, 1 << _level))
-            out = hits_output(out, k=k, Ct=Ct, hit_cap=hit_cap)
+        outs = []
+        for sh in self.dev_shards:
+            out = self._run_packed(sh, rw, ab, L, k, d, _level)
+            if hits:
+                hit_cap = min(out[2].shape[0], compact_cap(2 * Bp, hf, 1 << _level))
+                out = hits_output(out, k=k, Ct=Ct, hit_cap=hit_cap)
+            outs.append(out)
         mode = "hits" if hits else ("compact" if compact_out else "dense")
-        return ("block", block, Bp, k, out, time.perf_counter(), mode, _level)
+        return ("block", block, Bp, k, outs, time.perf_counter(), mode, _level)
 
     def finish_block(self, handle) -> FlatHits:
         """Materialize a dispatch_block handle -> results.FlatHits.
 
-        Any capacity overflow re-dispatches the block with doubled caps
-        (bounded by config.max_heals); reads still overflowed at the last
-        level are flagged in FlatHits.truncated (SAM tag xo:i:1)."""
-        tag, block, Bp, k, out, t_disp, mode, level = handle
+        Any capacity overflow on any shard re-dispatches the block with
+        doubled caps on every shard (bounded by config.max_heals); reads
+        still overflowed at the last level are flagged in
+        FlatHits.truncated (SAM tag xo:i:1). Counts follow bwtpu's list
+        form: in "hits" and "compact" modes the overflowed rows of each
+        shard add up, in "tiered" and "dense" modes a row counts once."""
+        tag, block, Bp, k, outs, t_disp, mode, level = handle
         assert tag == "block"
         mh, mc, lf, hf = self._caps(k, level)
         Ct = (k + 1) * mc if k else mh
@@ -1082,33 +1106,46 @@ class Engine:
         can_heal = cfg.heal_overflow and level < cfg.max_heals
         hit_over = 0
         if mode == "hits":
-            hc, hm, cnt2, n_ov, co, hover, ov_rows, count = out
-            cnt, n_over, compact_over, hit_over, cand_live = torch.stack(
-                [x.to(torch.int64) for x in (cnt2, n_ov, co, hover, count)]).tolist()
-            hm = _np(hm[:cnt])
-            shard_comp = [(_np(hc[:cnt]), hm % 4, hm // 4, cnt)]
-            self._observe(self._cand_live_frac, k, cand_live, Bp)
-            self._observe(self._hit_live_frac, k, cnt, Bp)
+            # every shard's scalars in one transfer
+            scal = torch.stack([x.to(torch.int64) for o in outs
+                                for x in (o[2], o[3], o[4], o[5], o[7])]).view(-1, 5).tolist()
+            shard_comp = []
+            for o, (cnt, _, _, _, cand_live) in zip(outs, scal):
+                hm = _np(o[1][:cnt])
+                shard_comp.append((_np(o[0][:cnt]), hm % 4, hm // 4, cnt))
+                self._observe(self._cand_live_frac, k, cand_live, Bp)
+                self._observe(self._hit_live_frac, k, cnt, Bp)
+            n_over, compact_over, hit_over = (sum(r[i] for r in scal) for i in (1, 2, 3))
+            ov_rows = torch.stack([o[6] for o in outs]).any(0)
         elif mode == "compact":
-            cand_c, nm_c, sel, count, overflow, co = out
-            ov_rows = overflow > 0
-            cnt, n_over, compact_over = torch.stack(
-                [x.to(torch.int64) for x in (count, ov_rows.sum(), co)]).tolist()
-            shard_comp = [(_np(cand_c[:cnt]), _np(nm_c[:cnt]), _np(sel[:cnt]), cnt)]
-            self._observe(self._cand_live_frac, k, cnt, Bp)
+            scal = torch.stack([x.to(torch.int64) for o in outs
+                                for x in (o[3], (o[4] > 0).sum(), o[5])]).view(-1, 3).tolist()
+            shard_comp = []
+            for o, (cnt, _, _) in zip(outs, scal):
+                shard_comp.append((_np(o[0][:cnt]), _np(o[1][:cnt]), _np(o[2][:cnt]), cnt))
+                self._observe(self._cand_live_frac, k, cnt, Bp)
+            n_over, compact_over = (sum(r[i] for r in scal) for i in (1, 2))
+            ov_rows = torch.stack([o[4] > 0 for o in outs]).any(0)
         elif mode == "tiered":
-            # the 12 outputs in one grouped transfer
-            out_np = _fetch_all(out)
-            rows_t, p_t, m_t, n_over, compact_over = tiered_to_columns(
-                out_np, self._caps(0, level)[0], mc, k, Bp)
-            ov_rows = out_np[10] > 0
-            # added at every heal level, as bwtpu does (reference fault C.2)
-            self.stats.escalated += int(out_np[9])
+            mh0 = self._caps(0, level)[0]
+            cols, compact_over, ov_rows = [], 0, None
+            for s, out in enumerate(outs):
+                # the 12 outputs in one grouped transfer
+                out_np = _fetch_all(out)
+                rows_t, p_t, m_t, _, co_s = tiered_to_columns(out_np, mh0, mc, k, Bp)
+                cols.append((np.full(len(rows_t), s, np.int64), rows_t, p_t, m_t))
+                compact_over += co_s
+                ov = out_np[10] > 0
+                ov_rows = ov if ov_rows is None else ov_rows | ov
+                # per shard and at every heal level, as bwtpu counts it
+                # (reference fault C.2)
+                self.stats.escalated += int(out_np[9])
+            n_over = int(ov_rows.sum())
         else:  # dense: (pos, valid, overflow, loc_over) or (cand, nm, valid, ...)
-            pos, nm, valid, overflow, co = out if k else (out[0], None, *out[1:])
-            ov_rows = overflow > 0
-            n_over, compact_over = torch.stack(
-                [ov_rows.sum(), co.to(torch.int64)]).tolist()
+            outs = [o if k else (o[0], None, *o[1:]) for o in outs]
+            ov_rows = torch.stack([o[3] for o in outs]).sum(0) > 0
+            vals = torch.stack([ov_rows.sum()] + [o[4].to(torch.int64) for o in outs]).tolist()
+            n_over, compact_over = vals[0], sum(vals[1:])
         self.stats.device_s += time.perf_counter() - t_disp
         if (n_over or compact_over or hit_over) and can_heal:
             return self._heal_block(block, k, Bp, level, n_over,
@@ -1123,10 +1160,11 @@ class Engine:
         t1 = time.perf_counter()
         if mode == "dense":
             s_idx, row_idx, p, m = dense_to_columns(
-                _np(pos)[None], None if nm is None else _np(nm)[None],
-                _np(valid)[None])
+                np.stack([_np(o[0]) for o in outs]),
+                None if k == 0 else np.stack([_np(o[1]) for o in outs]),
+                np.stack([_np(o[2]) for o in outs]))
         elif mode == "tiered":
-            s_idx, row_idx, p, m = np.zeros(len(rows_t), np.int64), rows_t, p_t, m_t
+            s_idx, row_idx, p, m = (np.concatenate(c) for c in zip(*cols))
         else:
             s_idx, row_idx, p, m = compact_to_columns(shard_comp, k, Ct)
         if compact_over:
@@ -1141,9 +1179,8 @@ class Engine:
                 "after %d heals (max_hits=%d, max_cand=%d); affected reads are "
                 "marked truncated", n_over, level, mh, mc,
             )
-        sh = self.shards[0]
         flat = flatten_hits(block.n, block.L, Bp, s_idx, row_idx, p, m,
-                            [sh.text_len], [sh.shard_offset])
+                            self._text_lens(), self._offsets())
         if trunc_rows is not None:
             # read-strand rows -> per-read flags ([0,Bp) fwd, [Bp,2Bp) rev)
             tr = np.zeros(block.n, dtype=bool)
@@ -1163,7 +1200,8 @@ class Engine:
         fracs[k] = max(fracs.get(k, 0.0), live / (2 * Bp))
 
     def _heal_block(self, block, k, Bp, level, n_over, compact_over, tiered=False):
-        """Re-dispatch a block with doubled caps (self-healing)."""
+        """Re-dispatch a block with doubled caps on every shard
+        (self-healing)."""
         self.stats.heals += 1
         log.info(
             "align block: %d overflowed rows / %d compaction drops — healing "

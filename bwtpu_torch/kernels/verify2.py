@@ -201,8 +201,8 @@ def verify_nm(text_rows, text_len: int, spos, sel, count, seed_off, read_words, 
     The kernel replaces bwtpu/kernels/pallas_step.py::verify_nm_pallas,
     the text-row gather and word funnel before it and the per-candidate
     row take of bwtpu/engine.py:523-541; one thread per candidate, W a
-    template parameter (instances up to `bwtpu_verify_nm_max_width()`
-    words; a wider read raises ValueError)."""
+    template parameter up to 20 words (320 bases) and a run-time argument
+    of one more instance for any wider read."""
     if not _build.on_cuda("verify_nm", spos):
         return verify_nm_plain(text_rows, text_len, spos, sel, count, seed_off, read_words,
                                amb_bits, len_mask, lens, max_loc, n_slots)
@@ -227,12 +227,9 @@ def verify_nm(text_rows, text_len: int, spos, sel, count, seed_off, read_words, 
                          "disagree in shape")
     if -(-int(text_len) // 16) > text_rows.shape[0] * TEXT_ROW_STRIDE:
         raise ValueError("verify_nm: text_rows are too few for text_len")
+    if W < 1:
+        raise ValueError("verify_nm: the read planes have no words")
     lib = _lib()
-    if not 1 <= W <= lib.bwtpu_verify_nm_max_width():
-        raise ValueError(f"verify_nm: reads of {W} words (> {16 * W - 16} bases) have no "
-                         f"kernel instance; the widest is "
-                         f"{lib.bwtpu_verify_nm_max_width()} words "
-                         f"({16 * lib.bwtpu_verify_nm_max_width()} bases)")
     vec_rows = text_rows.shape[1] % 4 == 0 and text_rows.data_ptr() % 16 == 0
     cand, nm = torch.empty_like(spos), torch.empty_like(spos)
     planes = [x for t in (read_words, amb_bits, len_mask) for x in (t.data_ptr(), t.stride(0))]
@@ -302,8 +299,6 @@ def _lib():
     f = lib.bwtpu_verify_nm
     if f.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.bwtpu_verify_nm_max_width.restype = i
-        lib.bwtpu_verify_nm_max_width.argtypes = []
         f.restype = i
         f.argtypes = [p, i, ll, p, p, p, p, p, ll, p, ll, p, ll, p] + [i] * 5 + [p] * 3
         g = lib.bwtpu_verify_locv

@@ -6,9 +6,9 @@
 Phases, in order; any failure raises and the exit code is not 0:
   1. the card: nvidia-smi name + power limit, torch's device name;
   2. build and load the port's native host library (g++, from
-     bwtpu_torch/csrc/host; required), then the six CUDA kernels (nvcc,
-     sm_90a) from bwtpu_torch/csrc, one nvcc per source, all started
-     together;
+     bwtpu_torch/csrc/host; required), then the seven CUDA kernels
+     (nvcc, sm_90a) from bwtpu_torch/csrc, one nvcc per source, all
+     started together;
   3. `build-index --sa-rate 1` of the E. coli-size genome (phase 7's
      index); each kernel against its plain-torch version on the card
      (exact equality), with CUDA-event times of both (a run of 50
@@ -21,6 +21,9 @@ Phases, in order; any failure raises and the exit code is not 0:
      also one lane alone, its latency floor, and the L2 sectors its chain
      requests), verify_locv at that index's locv table, row_gather_sum at
      that table (Wr 16) and at the 9.3 MB multi-step lattice (Wr 128);
+     verify_nm's run-time-W instance at W = 25 (400 bp reads); sw_band on
+     the very arguments --rescore hands it for one batch of phase 6's
+     reads at k = 2;
   4. phiX174 through the port's CLI on the card, byte-equal to
      data/phiX174_golden.sam;
   5. slice 1's path at E. coli scale: `build-index` with the CLI
@@ -45,7 +48,23 @@ Phases, in order; any failure raises and the exit code is not 0:
      at a locv row's width, at the text-row table's size (phase 3 timed
      the locv table's): an L2-resident gather rate, against which
      search_chain1's L2 sectors are read;
-  9. the result line.
+  9. --rescore: phase 6's FASTA on phase 5's index at k = 2 through the
+     port CLI: every AS:i tag equal to sw_score_plain on the card for the
+     same windows, 256 sampled primaries equal to sw_score_reference,
+     sw_band launched;
+ 10. paired-end on a sharded index: a random genome of chr21's length
+     (46,709,983 bp, the same repeat family at the same density),
+     `build-index --shards 2 --jobs 2` at the CLI defaults (both shards
+     on the card), 65,536 pairs of 100 bp through `align --paired` at
+     k = 0 and 2: pair truth, the paired Read-list loop byte-equal to the
+     columnar path, brute force on 256 sampled mate-1 reads against a
+     single-end pass, no truncated read, locate_walk, verify_nm and
+     search_chain2 launched at least once per shard and block;
+ 11. wide reads: `build-index --read-len 400` of a 1 Mbp random genome,
+     4,096 reads of 400 bp at k = 2 through the port CLI (verify_nm's
+     run-time-W instance): truth, brute force on 256 sampled reads, the
+     SAM equal to an engine pass, verify_nm launched;
+ 12. the result lines.
 
 The genome is random at E. coli size (4,641,652 bp) with one dispersed
 repeat family (300 copies of a 12 bp motif), so that some 11-mer start
@@ -74,6 +93,8 @@ BATCH = 16384
 N_SAMPLED = 256
 LANES = 65536  # compacted candidate lanes of one k = 2 batch (cap = 2 x 2B)
 REPEAT, N_REPEATS = "GATCCGTTAGCA", 300
+N_PAIRS = 4 * BATCH  # phase 10
+WIDE_GENOME, WIDE_READS, WIDE_L = 1_000_000, 4096, 400  # phase 11
 
 
 def require(ok: bool, what: str) -> None:
@@ -155,7 +176,7 @@ def phase_build():
     say(f"  native host library loaded: {os.path.relpath(sais.build_info['so'])} "
         f"(built in {sais.build_info['seconds']:.2f} s)")
     t0 = time.perf_counter()
-    names = ("locate", "verify", "search1", "search2", "gather")
+    names = ("locate", "verify", "search1", "search2", "gather", "sw")
     _build.build_all(names)
     for name in names:
         info = _build.build_info[name]
@@ -237,25 +258,29 @@ def phase_kernels(tmp: str, genome: str, fa: str, reads, block_reads):
             latk = put(idx.occk_lattice)
 
     verify_edges(text_rows, text_len, put, rng)
+    wide = verify_wide(idx8, put, rng)
     records = main_path_kernels(idx8, block_reads)
+    records["verify_nm"].update(wide)
     records.update(search_kernels(idx8, reads[:BATCH], put))
+    records["sw_band"] = sw_kernel(idx8, reads[:BATCH])
     locv = locv_kernel(genome, sa1_dir, put, rng, records)
     records["row_gather_sum"] = gather_kernel(put(locv), latk, rng)
     return records, sa1_dir
 
 
-def verify_edges(text_rows, text_len: int, put, rng):
+def verify_edges(text_rows, text_len: int, put, rng, L: int = 100):
     """verify_nm against its plain version on random compacted candidates
-    of 100 bp reads (L 100, W 7): 1,024 read rows x 3 seed slots x 32
-    slots each, 61,440 of 65,536 slots live, positions in and out of the
-    text, -1, bit phase 0, the last two starts; seed offsets past the
-    read's end; reads shorter than L."""
+    of L bp reads (W = ceil(L / 16) words; text rows built for L): 1,024
+    read rows x 3 seed slots x 32 slots each, 61,440 of 65,536 slots live,
+    positions in and out of the text, -1, bit phase 0, the last two
+    starts; seed offsets past the read's end; reads shorter than L.
+    Returns the arguments and the plain version's outputs."""
     import numpy as np
     import torch
 
     from bwtpu_torch.kernels.verify2 import pack_reads, verify_nm, verify_nm_plain
 
-    L, B2, n_slots, max_loc, count = 100, 1024, 3, 32, LANES * 15 // 16
+    B2, n_slots, max_loc, count = 1024, 3, 32, LANES * 15 // 16
     codes = rng.integers(0, 4, size=(B2, L)).astype(np.int32)
     amb = (rng.random((B2, L)) < 0.01).astype(np.int32)
     lens = np.full(B2, L, np.int32)
@@ -276,9 +301,66 @@ def verify_edges(text_rows, text_len: int, put, rng):
     got, want = verify_nm(*args), verify_nm_plain(*args)
     torch.cuda.synchronize()
     err = max(int((a - b).abs().max()) for a, b in zip(got, want))
-    require(err == 0, f"verify_nm != verify_nm_plain: max |diff| {err}")
-    say(f"  verify_nm    L {L}, W 7, {LANES} compacted slots ({count} live, "
+    require(err == 0, f"verify_nm != verify_nm_plain (L {L}): max |diff| {err}")
+    say(f"  verify_nm    L {L}, W {rw.shape[1]}, {LANES} compacted slots ({count} live, "
         f"{n_slots} seed slots): equal; in range {int((want[1] != 255).sum())}")
+    return args, want
+
+
+def verify_wide(idx, put, rng) -> dict:
+    """verify_nm's run-time-W instance (reads over 320 bases) at W = 25
+    (L 400, text rows built for 400) on verify_edges' inputs: checked,
+    timed beside its plain version, its bound counted from the inputs."""
+    from bwtpu_torch.kernels.verify2 import build_text_rows, verify_nm, verify_nm_plain
+
+    args, want = verify_edges(put(build_text_rows(idx.text_packed, 400)), idx.text_len,
+                              put, rng, L=400)
+    ms = sorted(cuda_ms(lambda: verify_nm(*args)) for _ in range(RUNS))[RUNS // 2]
+    plain = cuda_ms(lambda: verify_nm_plain(*args))
+    nbytes, ops, what = verify_work(args)
+    b = bound(nbytes, ops)
+    say(f"  verify_nm W 25 (run-time W; {what}): kernel {ms:.4f} ms, plain {plain:.4f} ms; "
+        f"bound {b['bound_ms']:.5f} ms ({b['bound_by']}: {b['bound_bytes']} B, "
+        f"{b['bound_ops']} ops)")
+    return {"w25_ms": ms, "w25_plain_ms": plain, "w25_bound_ms": b["bound_ms"]}
+
+
+def sw_kernel(idx, batch) -> dict:
+    """sw_band on the very arguments --rescore hands it for one Read-list
+    batch (16,384 of phase 6's reads, k = 2, on the CLI-default index):
+    Engine.align_batch, the primary of each mapped read, then
+    sw.rescore_candidates with sw_score_batch captured. Exact equality
+    with sw_score_plain, CUDA-event times of both, and the bound: each
+    lane's text window and read codes (and the two lengths) read once, one
+    score written; ~10 integer operations per band cell and row."""
+    import torch
+
+    from bwtpu_torch import sw
+    from bwtpu_torch.engine import Engine
+    from bwtpu_torch.golden import select_primary
+
+    eng = Engine([idx], device="cuda")
+    hits = eng.align_batch(batch, 2)
+    primaries = [[select_primary(h)[0]] if h else [] for h in hits]
+    calls = []
+    with capturing(sw, "sw_score_batch", calls):
+        sw.rescore_candidates(eng, batch, primaries)
+    require(len(calls) == 1, f"rescore_candidates made {len(calls)} sw_score_batch calls")
+    text, tl, reads, rl = calls[0][:4]
+    got, want = sw.sw_score_batch(*calls[0]), sw.sw_score_plain(*calls[0])
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    require(err == 0, f"sw_band != sw_score_plain: max |diff| {err}")
+    ms = sorted(cuda_ms(lambda: sw.sw_score_batch(*calls[0])) for _ in range(RUNS))[RUNS // 2]
+    plain = cuda_ms(lambda: sw.sw_score_plain(*calls[0]), reps=5)
+    B, L = reads.shape
+    band = 8
+    b = bound((text.numel() + reads.numel() + 3 * B) * 4, B * L * (2 * band + 1) * 10)
+    say(f"  sw_band {B} lanes x L {L}, Lt {text.shape[1]}, band {band} (--rescore's call for "
+        f"one Read-list batch at k = 2): equal; kernel {ms:.4f} ms, plain {plain:.4f} ms; "
+        f"bound {b['bound_ms']:.5f} ms ({b['bound_by']}: {b['bound_bytes']} B, "
+        f"{b['bound_ops']} ops); scores {int(want.min())}-{int(want.max())}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, **b)
 
 
 @contextlib.contextmanager
@@ -299,6 +381,8 @@ def capturing(owner, name: str, calls: list):
         yield
     finally:
         setattr(owner, name, orig)
+        if hasattr(orig, "launches"):  # the launches made under the capture
+            orig.launches += rec.launches
 
 
 def main_path_kernels(idx, block_reads):
@@ -786,10 +870,11 @@ def brute_force(g_t, patterns, masks, k: int):
 
     L = patterns.shape[1]
     N = g_t.shape[0] - L + 1
+    count_type = torch.uint8 if L < 256 else torch.int16  # counts up to L, no wrap
     out = []
     for lo in range(0, patterns.shape[0], 64):
         P, M = patterns[lo:lo + 64], masks[lo:lo + 64]
-        mism = torch.zeros((P.shape[0], N), dtype=torch.uint8, device=g_t.device)
+        mism = torch.zeros((P.shape[0], N), dtype=count_type, device=g_t.device)
         for i in range(L):
             mism += (g_t[i:i + N].unsqueeze(0) != P[:, i:i + 1]) | M[:, i:i + 1]
         pi, pos = torch.nonzero(mism <= k, as_tuple=True)
@@ -805,10 +890,8 @@ def phase_main(tmp: str, genome: str, fa: str, reads, truth):
     from bwtpu_torch.engine import Engine
     from bwtpu_torch.index import load_index
     from bwtpu_torch.io import write_fastq
-    from bwtpu_torch.readblock import read_fastq_stream
-    from bwtpu_torch.results import ContigTable, select_primary_flat
+    from bwtpu_torch.results import ContigTable
     from bwtpu_torch.sam import sam_header
-    from bwtpu_torch.samfast import emit_single
 
     say(f"[5] slice 1's path at E. coli scale ({len(genome)} bp, {N_READS} reads x 100 bp)")
     idx_dir, fq = (os.path.join(tmp, x) for x in ("ecoli_idx", "reads.fq"))
@@ -839,23 +922,14 @@ def phase_main(tmp: str, genome: str, fa: str, reads, truth):
     for k in (0, 2):
         # engine pass over the same FASTQ: hit sets for the checks
         eng = Engine(shards, device="cuda")
-        _, _, stream = read_fastq_stream(fq, BATCH)
-        parts, sam_parts = [], [sam_header(manifest.contigs).encode()]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        base = 0
-        for blk in stream:
-            flat = eng.finish_block(eng.dispatch_block(blk, k, pad_to=BATCH))
-            parts.append((flat.read_idx.astype(np.int64) + base, flat.pos,
-                          flat.strand_rev, flat.nm.astype(np.int64)))
-            sam_parts.append(emit_single(blk, select_primary_flat(flat), ctable,
-                                         truncated=flat.truncated))
-            base += blk.n
+        cols, sam_body = engine_pass(eng, fq, k, ctable)
         eng_s = time.perf_counter() - t0
-        ridx, pos, rev, nm = (np.concatenate(c) for c in zip(*parts))
+        ridx, pos, rev, nm = cols
 
         key = lambda r, p, s, m: ((r * 4 + m) << 34) | (p << 1) | s  # noqa: E731
-        have = key(ridx, pos, rev.astype(np.int64), nm)
+        have = key(ridx, pos, rev, nm)
         want_rows = np.flatnonzero(t_nm <= k)
         want = key(want_rows, t_pos[want_rows], t_rev[want_rows].astype(np.int64),
                    t_nm[want_rows])
@@ -867,11 +941,7 @@ def phase_main(tmp: str, genome: str, fa: str, reads, truth):
         ctx["bf"][k], ctx["keys"][k] = bf_set, np.sort(have)
         if k == 0:
             ctx["k0_reads"] = np.unique(ridx)
-        in_sample = np.isin(ridx, sample)
-        eng_set = {(int(r), int(p), int(s), int(m)) for r, p, s, m in
-                   zip(ridx[in_sample], pos[in_sample], rev[in_sample], nm[in_sample])}
-        require(bf_set == eng_set, f"k={k}: hit sets of the {N_SAMPLED} sampled reads "
-                                   f"differ from brute force ({len(eng_set ^ bf_set)} hits)")
+        check_sampled(cols, bf_set, sample, k, "phase 5")
 
         # the main path through the CLI, kernel launches counted
         sam = os.path.join(tmp, f"k{k}.sam")
@@ -885,7 +955,8 @@ def phase_main(tmp: str, genome: str, fa: str, reads, truth):
         require(all(launches[n] > 0 for n in need), f"k={k}: a kernel never ran: {launches}")
         with open(sam, "rb") as f:
             sam_bytes = f.read()
-        require(sam_bytes == b"".join(sam_parts), f"k={k}: CLI SAM differs from the engine pass")
+        require(sam_bytes == sam_header(manifest.contigs).encode() + sam_body,
+                f"k={k}: CLI SAM differs from the engine pass")
         require(summary["reads"] == N_READS, f"k={k}: CLI aligned {summary['reads']} reads")
         require(summary["truncated_reads"] == 0 and b"xo:i:1" not in sam_bytes,
                 f"k={k}: truncated reads")
@@ -986,7 +1057,7 @@ def phase_locv(tmp: str, p5: dict, idx_dir: str):
     shards, manifest = load_index(idx_dir)
     cfg = shards[0].config
     t0 = time.perf_counter()
-    sh = Engine(shards, device="cuda").shard
+    sh = Engine(shards, device="cuda").dev_shards[0]
     up_s = time.perf_counter() - t0
     sizes = {name: getattr(sh, name).numel() * 4 / 1e6
              for name in ("lattice", "latk", "ssa", "text_rows", "locv")}
@@ -1093,6 +1164,263 @@ def phase_locv(tmp: str, p5: dict, idx_dir: str):
     return {n: sum(s[n] for s in stats.values()) for n in stats["k=0"]}
 
 
+def engine_pass(eng, fq: str, k: int, ctable):
+    """Engine.dispatch_block + finish_block over a FASTQ in blocks of
+    BATCH, as the CLI's columnar path runs them: (read, pos, reverse, nm)
+    columns of every hit and the SAM that the CLI would write, header
+    excluded."""
+    import numpy as np
+
+    from bwtpu_torch.readblock import read_fastq_stream
+    from bwtpu_torch.results import select_primary_flat
+    from bwtpu_torch.samfast import emit_single
+
+    _, _, stream = read_fastq_stream(fq, BATCH)
+    parts, sam = [], []
+    base = 0
+    for blk in stream:
+        flat = eng.finish_block(eng.dispatch_block(blk, k, pad_to=BATCH))
+        require(flat.truncated is None, f"k={k}: truncated reads in the engine pass")
+        parts.append((flat.read_idx.astype(np.int64) + base, flat.pos,
+                      flat.strand_rev.astype(np.int64), flat.nm.astype(np.int64)))
+        sam.append(emit_single(blk, select_primary_flat(flat), ctable))
+        base += blk.n
+    return tuple(np.concatenate(c) for c in zip(*parts)), b"".join(sam)
+
+
+def check_sampled(have, bf: set, sample, k: int, what: str) -> int:
+    """The hits of the sampled reads (columns of engine_pass) equal the
+    brute-force set at k (bf holds the hits with nm <= 2)."""
+    import numpy as np
+
+    ridx, pos, rev, nm = have
+    m = np.isin(ridx, sample)
+    got = {(int(r), int(p), int(s), int(n)) for r, p, s, n in
+           zip(ridx[m], pos[m], rev[m], nm[m])}
+    want = {h for h in bf if h[3] <= k}
+    require(got == want, f"{what} k={k}: hit sets of the {len(sample)} sampled reads differ "
+                         f"from brute force ({len(got ^ want)} hits)")
+    return len(want)
+
+
+def phase_rescore(tmp: str, genome: str, idx_dir: str, reads):
+    """--rescore: phase 6's FASTA on phase 5's index at k = 2 through the
+    port CLI, sw_score_batch captured: every AS:i tag equals
+    sw_score_plain on the card for the same windows, 256 sampled
+    primaries equal sw_score_reference on windows cut from the genome,
+    sw_band launched. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from bwtpu_torch import dna, sw
+
+    say(f"[9] --rescore: phase 6's {N_READS} FASTA reads, k = 2, phase 5's index")
+    fa, sam = os.path.join(tmp, "reads.fa"), os.path.join(tmp, "rescore.sam")
+    calls: list = []
+    reset_launches()
+    with capturing(sw, "sw_score_batch", calls):
+        summary = run_cli(["align", idx_dir, fa, "-o", sam, "-k", "2", "--batch-size",
+                           str(BATCH), "--device", "cuda", "--rescore"])
+    launches = read_launches()
+    require(launches["sw_band"] == len(calls) == N_READS // BATCH
+            and launches["search_chain1"] > 0, f"--rescore: launches {launches}, "
+                                               f"{len(calls)} calls")
+    plain = torch.cat([sw.sw_score_plain(*c) for c in calls]).cpu().numpy()
+    recs = [ln.split("\t") for ln in open(sam) if not ln.startswith("@")]
+    tags = {i: int(r[-1][5:]) for i, r in enumerate(recs) if r[-1].startswith("AS:i:")}
+    require(len(recs) == N_READS and list(tags.values()) == plain.tolist(),
+            f"--rescore: {len(tags)} AS tags against {len(plain)} plain scores")
+    sample = np.sort(np.random.default_rng(SEED + 7).choice(sorted(tags), N_SAMPLED,
+                                                             replace=False))
+    for i in sample:
+        r, flag, pos = recs[i], int(recs[i][1]), int(recs[i][3]) - 1
+        seq = dna.decode(dna.encode_with_mask(reads[i].seq)[0])
+        seq = dna.revcomp_str(seq) if flag & 16 else seq
+        window = genome[max(0, pos - 8):pos + len(seq) + 8]
+        require(tags[i] == sw.sw_score_reference(window, seq),
+                f"--rescore: read {i}: AS {tags[i]} != sw_score_reference")
+    say(f"  {len(tags)} AS tags equal sw_score_plain on the card; {N_SAMPLED} sampled equal "
+        f"sw_score_reference; scores {min(tags.values())}-{max(tags.values())}; CLI "
+        f"{summary['reads_per_s']} reads/s ({summary['wall_s']} s); launches {launches}")
+    return launches
+
+
+def paired_genome() -> str:
+    """Random genome of human chr21's length with smoke_genome's repeat
+    family at its density (one copy per ~15.5 kbp)."""
+    import numpy as np
+
+    from bwtpu_torch.simulate import CHR21_SCALE, ECOLI_SCALE, random_genome
+
+    g = bytearray(random_genome(CHR21_SCALE, seed=SEED + 8), "ascii")
+    rng = np.random.default_rng(SEED + 9)
+    n = N_REPEATS * CHR21_SCALE // ECOLI_SCALE
+    for p in rng.choice(len(g) - len(REPEAT), size=n, replace=False):
+        g[p:p + len(REPEAT)] = REPEAT.encode()
+    return g.decode()
+
+
+def phase_paired(tmp: str):
+    """Paired-end on a sharded index: BASELINE's "chr21 index sharded"
+    (`build-index --shards 2 --jobs 2` at the CLI defaults, both shards
+    on one card) and 65,536 pairs of 100 bp (insert 300 +- 30, <= 2
+    substitutions a mate) through the port CLI at k = 0 and 2: the
+    columnar path, then the paired Read-list loop (`--rescore --paired`)
+    byte-equal to it; pair truth; brute force on 256 sampled mate-1 reads
+    against a single-end engine pass; no truncated read; locate_walk,
+    verify_nm and search_chain2 launched at least once per shard and
+    block. Returns the launches of the columnar runs."""
+    import numpy as np
+    import torch
+
+    from bwtpu_torch import dna
+    from bwtpu_torch.engine import Engine
+    from bwtpu_torch.index import load_index
+    from bwtpu_torch.io import write_fasta, write_fastq
+    from bwtpu_torch.results import ContigTable
+    from bwtpu_torch.simulate import simulate_pairs
+
+    n_pairs = N_PAIRS
+    t0 = time.perf_counter()
+    genome = paired_genome()
+    fa, idx_dir = os.path.join(tmp, "chr21.fa"), os.path.join(tmp, "chr21_idx")
+    write_fasta(fa, [("chr21_sim", genome)])
+    say(f"[10] paired-end on a 2-shard index of {len(genome)} bp ({n_pairs} pairs x 100 bp); "
+        f"genome {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as built:
+        run_cli(["build-index", fa, idx_dir, "--shards", "2", "--jobs", "2"])
+    build_s = time.perf_counter() - t0
+    shards, manifest = load_index(idx_dir)
+    eng = Engine(shards, device="cuda")
+    sizes = [sum(t.numel() * 4 for t in (sh.lattice, sh.latk, sh.latk_inv, sh.ssa, sh.C,
+                                         sh.text_rows, sh.locv, *sh.kmer_tables.values()))
+             for sh in eng.dev_shards]
+    say(f"  build-index --shards 2 --jobs 2: {build_s:.1f} s; {built.getvalue().strip()}; "
+        f"resident per shard (MB): {[round(b / 1e6, 1) for b in sizes]} (offsets "
+        f"{[sh.shard_offset for sh in shards]}, text {[sh.text_len for sh in shards]})")
+    t0 = time.perf_counter()
+    pairs, ptruth = simulate_pairs(genome, n_pairs, read_len=100, insert_mean=300,
+                                   insert_sd=30, max_mismatches=2, seed=SEED + 10)
+    fq1, fq2 = os.path.join(tmp, "pairs_1.fq"), os.path.join(tmp, "pairs_2.fq")
+    write_fastq(fq1, [p[0] for p in pairs])
+    write_fastq(fq2, [p[1] for p in pairs])
+    say(f"  simulated and wrote the pairs: {time.perf_counter() - t0:.1f} s")
+
+    # each mate's substitutions against its true locus
+    g = dna.encode(genome)
+    pos1 = np.array([t["pos1"] for t in ptruth], np.int64)
+    pos2 = np.array([t["pos2"] for t in ptruth], np.int64)
+    win = np.arange(100)
+    m1 = np.stack([dna.encode(p[0].seq) for p in pairs])
+    m2 = np.stack([dna.encode(dna.revcomp_str(p[1].seq)) for p in pairs])
+    nm1 = (m1 != g[pos1[:, None] + win]).sum(1)
+    nm2 = (m2 != g[pos2[:, None] + win]).sum(1)
+
+    g_t = torch.from_numpy(g).cuda()
+    mates1 = [p[0] for p in pairs]
+    sample = np.sort(np.random.default_rng(SEED + 11).choice(n_pairs, N_SAMPLED,
+                                                             replace=False))
+    bf = brute_force_sample(g_t, mates1, sample, 2)
+    del g_t
+    ctable = ContigTable.build(manifest.contigs)
+    n_blocks = n_pairs // BATCH
+    stats = {}
+    for k in (0, 2):
+        have, _ = engine_pass(Engine(shards, device="cuda"), fq1, k, ctable)
+        n_bf = check_sampled(have, bf, sample, k, "mate 1, single-end")
+        out = {}
+        for route, extra in (("columnar", []), ("Read-list", ["--rescore"])):
+            sam = os.path.join(tmp, f"paired_k{k}_{route}.sam")
+            reset_launches()
+            summary = run_cli(["align", idx_dir, fq1, "--paired", fq2, "-o", sam, "-k", str(k),
+                               "--batch-size", str(BATCH), "--device", "cuda", *extra])
+            launches = read_launches()
+            with open(sam, "rb") as f:
+                out[route] = f.read()
+            require(summary["reads"] == 2 * n_pairs and summary["truncated_reads"] == 0
+                    and b"xo:i:1" not in out[route], f"paired k={k} {route}: {summary}")
+            if route == "columnar":
+                stats[k] = launches
+                per = {n: launches[n] / (2 * n_blocks) for n in
+                       ("locate_walk", "verify_nm", "search_chain2")}
+                require(all(v >= 1 for v in per.values()),
+                        f"paired k={k}: launches per shard and block {per}")
+                rate = summary["reads_per_s"], summary["wall_s"]
+        require(out["Read-list"] == out["columnar"],
+                f"paired k={k}: the Read-list loop's SAM differs from the columnar path's")
+        recs = [ln.split(b"\t") for ln in out["columnar"].splitlines()
+                if not ln.startswith(b"@")]
+        flag = np.array([int(r[1]) for r in recs]).reshape(n_pairs, 2)
+        pos = np.array([int(r[3]) - 1 for r in recs]).reshape(n_pairs, 2)
+        want = (nm1 <= k) & (nm2 <= k)
+        ok = (flag[:, 0] & 2 != 0) & (pos[:, 0] == pos1) & (pos[:, 1] == pos2)
+        require(ok[want].all(), f"paired k={k}: {int((~ok[want]).sum())} of {int(want.sum())} "
+                                f"pairs not recovered as proper pairs at their loci")
+        say(f"  k={k}: {int(want.sum())}/{int(want.sum())} pairs recovered as proper pairs at "
+            f"their loci ({int((flag[:, 0] & 2 != 0).sum())} proper in all); the Read-list loop "
+            f"byte-equal to the columnar path; mate 1 single-end equal to brute force on "
+            f"{N_SAMPLED} reads ({n_bf} hits); CLI columnar {rate[0]} reads/s ({rate[1]} s); "
+            f"launches per shard and block "
+            f"{ {n: c / (2 * n_blocks) for n, c in stats[k].items()} }")
+    return {n: sum(st[n] for st in stats.values()) for n in stats[0]}, build_s
+
+
+def phase_wide(tmp: str):
+    """Wide reads: `build-index --read-len 400` of a 1 Mbp random genome,
+    4,096 reads of 400 bp (<= 2 substitutions) at k = 2 through the port
+    CLI (the columnar path: verify_nm on 25-word reads, its run-time-W
+    instance); brute force on 256 sampled reads, the CLI's SAM equal to an
+    engine pass, truth, verify_nm launched. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from bwtpu_torch import dna
+    from bwtpu_torch.engine import Engine
+    from bwtpu_torch.index import load_index
+    from bwtpu_torch.io import write_fasta, write_fastq
+    from bwtpu_torch.results import ContigTable
+    from bwtpu_torch.sam import sam_header
+    from bwtpu_torch.simulate import random_genome, simulate_reads
+
+    n, L = WIDE_READS, WIDE_L
+    say(f"[11] wide reads: {n} reads x {L} bp, k = 2, `build-index --read-len {L}` of "
+        f"{WIDE_GENOME} bp")
+    genome = random_genome(WIDE_GENOME, seed=SEED + 12)
+    fa, idx_dir, fq, sam = (os.path.join(tmp, x) for x in
+                            ("wide.fa", "wide_idx", "wide.fq", "wide.sam"))
+    write_fasta(fa, [("wide_sim", genome)])
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_cli(["build-index", fa, idx_dir, "--read-len", str(L)])
+    reads, truth = simulate_reads(genome, n, read_len=L, max_mismatches=2, seed=SEED + 13)
+    write_fastq(fq, reads)
+    shards, manifest = load_index(idx_dir)
+    have, sam_body = engine_pass(Engine(shards, device="cuda"), fq, 2,
+                                 ContigTable.build(manifest.contigs))
+    sample = np.sort(np.random.default_rng(SEED + 14).choice(n, N_SAMPLED, replace=False))
+    bf = brute_force_sample(torch.from_numpy(dna.encode(genome)).cuda(), reads, sample, 2)
+    n_bf = check_sampled(have, bf, sample, 2, "wide reads")
+    key = lambda r, p, s: (r << 34) | (p << 1) | s  # noqa: E731
+    t_pos = np.array([t["pos"] for t in truth], np.int64)
+    t_rev = np.array([t["strand"] == "-" for t in truth], np.int64)
+    found = np.isin(key(np.arange(n), t_pos, t_rev), key(have[0], have[1], have[2]))
+    require(found.all(), f"wide reads: truth missing for {int((~found).sum())} of {n}")
+    reset_launches()
+    summary = run_cli(["align", idx_dir, fq, "-o", sam, "-k", "2", "--batch-size", str(n),
+                       "--device", "cuda"])
+    launches = read_launches()
+    with open(sam, "rb") as f:
+        sam_bytes = f.read()
+    require(sam_bytes == sam_header(manifest.contigs).encode() + sam_body
+            and summary["truncated_reads"] == 0, f"wide reads: CLI SAM differs from the "
+                                                 f"engine pass ({summary})")
+    require(launches["verify_nm"] > 0 and launches["locate_walk"] > 0,
+            f"wide reads: launches {launches}")
+    say(f"  truth {n}/{n}; brute force equal on {N_SAMPLED} reads ({n_bf} hits); CLI SAM equal "
+        f"to the engine pass; {summary['reads_per_s']} reads/s; launches {launches}")
+    return launches
+
+
 def phase_gather_ab():
     """The row gather's A/B entry point (scripts/torch_gather_ab.py) at a
     locv row's width and the text-row table's size (2.3 MB, L2-resident);
@@ -1133,6 +1461,7 @@ def chain1_l2(rec: dict, bytes_per_ms: float) -> None:
 
 
 KERNELS = {  # name: (source, TPU kernel (or jnp code) it replaces)
+    "sw_band": ("bwtpu_torch/csrc/sw.cu", "bwtpu/sw.py:28"),
     "locate_walk": ("bwtpu_torch/csrc/locate.cu", "bwtpu/kernels/pallas_step.py:256"),
     "verify_nm": ("bwtpu_torch/csrc/verify.cu", "bwtpu/kernels/pallas_step.py:302"),
     "search_chain1": ("bwtpu_torch/csrc/search1.cu", "bwtpu/kernels/pallas_step.py:179"),
@@ -1148,8 +1477,9 @@ def _wrappers():
     from bwtpu_torch.kernels.locate import locate_walk
     from bwtpu_torch.kernels.search2 import search_chain1, search_chain2
     from bwtpu_torch.kernels.verify2 import verify_locv, verify_nm
+    from bwtpu_torch.sw import sw_score_batch
 
-    return {"locate_walk": locate_walk, "verify_nm": verify_nm,
+    return {"sw_band": sw_score_batch, "locate_walk": locate_walk, "verify_nm": verify_nm,
             "search_chain1": search_chain1, "search_chain2": search_chain2,
             "verify_locv": verify_locv, "row_gather_sum": row_gather_sum}
 
@@ -1252,13 +1582,19 @@ def main() -> int:
         idx_dir, launches, p5 = phase_main(tmp, genome, fa, reads, truth)
         list_launches = phase_read_list(tmp, genome, idx_dir, list_reads, list_truth)
         locv_launches = phase_locv(tmp, p5, sa1_dir)
-    ab_launches, l2_rate = phase_gather_ab()
-    chain1_l2(records["search_chain1"], l2_rate)
+        ab_launches, l2_rate = phase_gather_ab()
+        chain1_l2(records["search_chain1"], l2_rate)
+        rescore_launches = phase_rescore(tmp, genome, idx_dir, list_reads)
+        paired_launches, paired_build_s = phase_paired(tmp)
+        wide_launches = phase_wide(tmp)
     paths = {"slice 1's path": launches, "the Read-list path": list_launches,
-             "the sa_rate 1 path": locv_launches, "the gather A/B": ab_launches}
+             "the sa_rate 1 path": locv_launches, "the --rescore path": rescore_launches,
+             "paired-end on 2 shards": paired_launches, "wide reads": wide_launches,
+             "the gather A/B": ab_launches}
     for what, counts in paths.items():
         say(f"  launches on {what}: {counts}")
-    say(f"[9] all phases passed in {time.perf_counter() - t_all:.1f} s on {smi}")
+    say(f"[12] all phases passed in {time.perf_counter() - t_all:.1f} s on {smi} "
+        f"(the 2-shard build took {paired_build_s:.1f} s)")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[k] for c in paths.values()), **records[k],

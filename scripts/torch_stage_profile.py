@@ -305,7 +305,7 @@ def _sa_rate1(shards, blocks, smi):
         for locv in (True, False):
             eng = Engine(shards, device="cuda")
             if not locv:
-                eng.shard = upload_index(shards, eng.device, locv=False)
+                eng.dev_shards = upload_index(shards, eng.device, locv=False)
             lf = eng.autotune_caps(blocks[0], k, pad_to=BATCH)  # also the warm-up
             _block_passes(eng, blocks, k, smi, tiered=tiered, path="sa_rate1",
                           locv=locv, loc_factor=lf, hit_factor=eng._hf(k))

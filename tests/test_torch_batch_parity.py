@@ -107,7 +107,7 @@ def test_dense_block_mode_without_multistep_lattice(k):
     """An index built with occ_step=0 has no multi-step lattice: the block
     path runs the 1-step fallback (device_prep_uniform) in "dense" mode."""
     idx = build_fm_index(GENOME, CFG.replace(occ_step=0))
-    assert te.shard_occ_step(te.upload_index([idx], "cpu")) == 0
+    assert te.shard_occ_step(te.upload_index([idx], "cpu")[0]) == 0
     reads, _ = simulate_reads(GENOME, 100, read_len=60, max_mismatches=2,
                               n_frac=0.01, seed=k + 7)
     blk = ReadBlock.from_reads(reads)
@@ -146,4 +146,68 @@ def test_compact_block_mode_matches_bwtpu(index, monkeypatch, k):
     handle = et.dispatch_block(blk, k, pad_to=128)
     assert handle[6] == "compact"
     _assert_flat_equal(et.finish_block(handle), _run(ej, blk, k, pad_to=128))
+    assert _stats(et) == _stats(ej)
+
+
+@pytest.mark.parametrize("L", [60, 80, 100])
+def test_reads_longer_than_read_len_lose_hits_as_in_bwtpu(L):
+    """Reference fault C.5, kept: Read-list reads longer than the index's
+    read_len are verified against text windows built for read_len, so
+    at k > 0 some lose their true hit past ~read_len + 28 bases. The
+    found counts (and the hit lists) equal bwtpu's at each length; the
+    loss shows at 100 bp against an index built for 40."""
+    idx = build_fm_index(GENOME, CFG.replace(read_len=40))
+    reads, truth = simulate_reads(GENOME, 60, read_len=L, seed=L + 1)
+    ej, et = je.Engine([idx]), te.Engine([idx], device="cpu")
+    got, want = et.align_batch(reads, 2), ej.align_batch(reads, 2)
+    assert _hits(got) == _hits(want)
+
+    def found(lists):
+        return sum(any(h.pos == t["pos"] and h.strand == t["strand"] for h in hs)
+                   for t, hs in zip(truth, lists))
+
+    assert found(got) == found(want)
+    assert found(got) == 60 if L == 60 else (L < 100 or found(got) < 60)
+    assert _stats(et) == _stats(ej)
+
+
+def test_read_list_writes_no_truncation_mark_as_in_bwtpu():
+    """Reference fault C.6, kept: with healing off, a capacity-cut input
+    gets xo:i:1 marks through the block path (FlatHits.truncated ->
+    samfast.emit_single) and none through the Read-list path
+    (finish_batch counts the reads as overflow_reads; emit_sam has no
+    mark). Each SAM equals bwtpu's byte for byte."""
+    import io as sio
+
+    from bwtpu.results import ContigTable, select_primary_flat
+    from bwtpu.samfast import emit_single as j_emit_single
+    from bwtpu.sam import emit_sam as j_emit_sam
+    from bwtpu_torch.results import ContigTable as TContigTable
+    from bwtpu_torch.results import select_primary_flat as t_select_primary_flat
+    from bwtpu_torch.sam import emit_sam as t_emit_sam
+    from bwtpu_torch.samfast import emit_single as t_emit_single
+
+    genome, off = _repeat_genome()
+    cfg = EngineConfig(sa_rate=4, max_hits=4, max_cand=4, loc_factor=1, read_len=36,
+                       max_heals=0)
+    idx = build_fm_index(genome, cfg)
+    reads, _ = simulate_reads(genome, 24, read_len=36, max_mismatches=2, seed=6)
+    reads[0] = Read("rep0", genome[off:off + 36], "I" * 36)
+    contigs = idx.contigs
+    blk = ReadBlock.from_reads(reads)
+    ej, et = je.Engine([idx]), te.Engine([idx], device="cpu")
+    sams = {}
+    for name, eng, emit_single, select, table, emit_sam in (
+            ("bwtpu", ej, j_emit_single, select_primary_flat, ContigTable, j_emit_sam),
+            ("port", et, t_emit_single, t_select_primary_flat, TContigTable, t_emit_sam)):
+        flat = _run(eng, blk, 2)
+        block_sam = emit_single(blk, select(flat), table.build(contigs),
+                                truncated=flat.truncated)
+        buf = sio.StringIO()
+        emit_sam(reads, eng.align_batch(reads, 2), contigs, buf, header=False)
+        sams[name] = (block_sam, buf.getvalue().encode())
+    assert sams["port"] == sams["bwtpu"]
+    block_sam, list_sam = sams["port"]
+    assert block_sam.count(b"xo:i:1") > 0 and b"xo:i:1" not in list_sam
+    assert et.stats.truncated_reads > 0 and et.stats.heals == 0
     assert _stats(et) == _stats(ej)

@@ -102,8 +102,10 @@ def test_resume_and_uncovered_options(tmp_path):
     (tmp_path / "out.sam.cursor").write_text('{"next_batch": 2}')
     tcli.main(base + ["--resume"])
     assert out.read_bytes() == full
-    # --tiered, --esc-factor and --autotune-caps are covered now
-    # (tests/test_torch_tiered.py)
-    for flag, slice_no in ((["--rescore"], 7), (["--paired", str(fq)], 7)):
+    # --tiered, --esc-factor and --autotune-caps (tests/test_torch_tiered.py),
+    # --paired, --rescore and simulate (tests/test_torch_paired.py) are
+    # covered now; what is left names its ROADMAP slice
+    for argv, slice_no in ((base + ["--profile", str(tmp_path / "prof")], 9),
+                           (["bench"], 9), (["scaling", "--shards", "2"], 8)):
         with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-            tcli.main(base + flag)
+            tcli.main(argv)

@@ -125,10 +125,12 @@ def test_finisher_capacity_matches_bwtpu(k, max_heals, monkeypatch):
 
 
 def test_engine_refuses_uncovered_options():
-    """What the port still refuses: block reads longer than read_len
-    (as bwtpu does) and several shards (slice 5). Patterns shorter than
-    every k-mer table (tests/test_torch_batch_parity.py) and sa_rate == 1
-    (tests/test_torch_locv.py) are covered now."""
+    """What the port still refuses: block reads longer than read_len (as
+    bwtpu does). Patterns shorter than every k-mer table
+    (tests/test_torch_batch_parity.py), sa_rate == 1
+    (tests/test_torch_locv.py) and several shards
+    (tests/test_torch_shards.py) are covered now: an Engine over two
+    shards holds one device Shard each."""
     g = random_genome(3000, seed=4)
     idx = build_fm_index(g, EngineConfig(sa_rate=4, read_len=40))
     long, _ = simulate_reads(g, 4, read_len=41)
@@ -136,6 +138,5 @@ def test_engine_refuses_uncovered_options():
     with pytest.raises(ValueError, match="not in"):
         et.dispatch_block(ReadBlock.from_reads(long), 2)
     e1 = te.Engine([build_fm_index(g, EngineConfig(sa_rate=1))], device="cpu")
-    assert e1.shard.locv.shape[-1] > 1
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        te.Engine([idx, idx], device="cpu")
+    assert e1.dev_shards[0].locv.shape[-1] > 1
+    assert len(te.Engine([idx, idx], device="cpu").dev_shards) == 2

@@ -134,12 +134,20 @@ def test_verify_nm_kernel_matches_plain(cuda, idx8, W, n_slots, count, shared_ma
 
 
 @pytest.mark.gpu
-def test_verify_nm_refuses_a_width_without_an_instance(cuda, idx8):
-    args = list(_verify_nm_args(idx8, 2, 1, 100, cuda, False))
-    for i in (6, 7, 8):  # read planes 21 words wide
-        args[i] = args[i].repeat(1, 11)[:, :21].contiguous()
-    with pytest.raises(ValueError, match="no kernel instance"):
-        verify_nm(*args)
+@pytest.mark.parametrize("W", [21, 25, 32])
+@pytest.mark.parametrize("n_slots,count,shared_mask", [(3, 25000, False), (1, 40000, True)])
+def test_verify_nm_wide_kernel_matches_plain(cuda, idx8, W, n_slots, count, shared_mask):
+    """Reads over 320 bases take the run-time-W instance: slot for slot
+    equal to the plain version, the slots past count included."""
+    from bwtpu_torch.kernels.verify2 import verify_nm_plain
+
+    args = _verify_nm_args(idx8, W, n_slots, count, cuda, shared_mask)
+    got = verify_nm(*args)
+    want = verify_nm_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (want[1][count:] == 255).all() and (want[1] <= 2).sum() > count // 10
 
 
 def _chain_inputs(idx, dev, d: int, B: int, seed: int, L: int = L):
@@ -360,3 +368,69 @@ def test_row_gather_sum_kernel_matches_plain(cuda, Wr, unaligned, inflight):
         want = row_gather_sum_plain(table, idx, G)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band", [0, 4, 8, 16])
+@pytest.mark.parametrize("B,Lt,L", [(5000, 116, 100), (300, 6, 30), (1, 0, 0), (700, 50, 45)])
+def test_sw_band_kernel_matches_plain(cuda, band, B, Lt, L):
+    """sw_band against sw_score_plain: random codes with N (4), windows
+    that contain their read with substitutions, text shorter than the
+    band, empty text, empty reads, read lengths 0..L, lane 0 full."""
+    from bwtpu_torch.sw import sw_score_batch, sw_score_plain
+
+    rng = np.random.default_rng(band + B + Lt)
+    text = rng.integers(0, 5, size=(B, Lt)).astype(np.int32)
+    reads = rng.integers(0, 5, size=(B, L)).astype(np.int32)
+    tl = rng.integers(0, Lt + 1, size=B).astype(np.int32)
+    rl = rng.integers(0, L + 1, size=B).astype(np.int32)
+    tl[0], rl[0] = Lt, L
+    n = min(L, Lt)
+    reads[::2, :n] = np.where(rng.random((len(reads[::2]), n)) < 0.05, reads[::2, :n],
+                              text[::2, :n])
+    args = [_t(a, cuda) for a in (text, tl, reads, rl)]
+    got = sw_score_batch(*args, band=band)
+    want = sw_score_plain(*args, band=band)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if B > 1 and L and Lt > band:
+        assert int(want.max()) > 2 * min(L, Lt) // 2
+
+
+@pytest.mark.gpu
+def test_sw_band_refuses_a_band_without_an_instance(cuda):
+    from bwtpu_torch.sw import sw_score_batch
+
+    z = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        sw_score_batch(z, z[:, 0].contiguous(), z, z[:, 0].contiguous(), band=17)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,tiered", [(0, False), (2, False), (2, True)])
+def test_three_shard_engine_on_the_card_equals_the_cpu(cuda, k, tiered):
+    """The several-shard dispatch on the card (every kernel of the block
+    and Read-list paths, per shard) against the same Engine on the CPU
+    (the plain versions): equal FlatHits, hit lists and BatchStats."""
+    from bwtpu_torch.engine import Engine
+    from bwtpu_torch.index import build_sharded_index
+    from bwtpu_torch.readblock import ReadBlock
+
+    cfg = EngineConfig(sa_rate=8, read_len=L)
+    shards, _ = build_sharded_index(GENOME, 3, config=cfg, overlap=128)
+    reads, _ = simulate_reads(GENOME, 2000, read_len=L, max_mismatches=2, n_frac=0.01,
+                              seed=31)
+    mixed = reads[:500] + simulate_reads(GENOME, 500, read_len=70, max_mismatches=2,
+                                         seed=32)[0]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = Engine(shards, device=dev)
+        flat = eng.finish_block(eng.dispatch_block(ReadBlock.from_reads(reads), k,
+                                                   pad_to=2048, tiered=tiered))
+        lists = [[(h.nm, h.strand, h.pos) for h in hs] for hs in eng.align_batch(mixed, k)]
+        out[dev] = (flat, lists, dict(vars(eng.stats), device_s=0, host_s=0))
+    (fg, lg, sg), (fc, lc, sc) = out["cuda"], out["cpu"]
+    for name in ("read_idx", "pos", "strand_rev", "nm"):
+        assert np.array_equal(getattr(fg, name), getattr(fc, name)), name
+    assert (fg.truncated is None) == (fc.truncated is None)
+    assert lg == lc and sg == sc and len(fg.read_idx) > (200 if k == 0 else 1000)

@@ -15,7 +15,7 @@ import bwtpu_torch.kernels.search2 as tsearch2
 import bwtpu_torch.kernels.verify as tverify
 import bwtpu_torch.kernels.verify2 as tverify2
 from bwtpu.config import EngineConfig
-from bwtpu.index import build_fm_index
+from bwtpu.index import build_fm_index, build_sharded_index
 from bwtpu.io import Read
 from bwtpu.simulate import random_genome
 
@@ -172,17 +172,16 @@ def test_compact_to_columns_equal():
         np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("sa_rate", [1, 4, 8])
-def test_shard_equal_to_bwtpu_upload(sa_rate):
-    idx = build_fm_index(random_genome(5000, seed=sa_rate),
-                         EngineConfig(sa_rate=sa_rate, read_len=60))
-    ref = jax.tree.map(lambda x: x[0], je.upload_index([idx]).shard)
-    got = te.upload_index([idx], torch.device("cpu"))
+def _assert_shard_equal(got, ref):
+    """One port Shard against one of bwtpu's per-shard trees (bwtpu's
+    list form pads the row-indexed tables to the largest shard's rows:
+    the port's are the unpadded prefix, the padding is zeros)."""
     for name in ("lattice", "latk", "latk_inv", "ssa", "C", "text_rows", "locv"):
         want = np.asarray(getattr(ref, name))
         have = getattr(got, name).numpy()
         assert have.dtype == want.dtype, name
-        np.testing.assert_array_equal(have, want, err_msg=name)
+        np.testing.assert_array_equal(have, want[:len(have)], err_msg=name)
+        assert not want[len(have):].any(), name
     for name in ("dollar_row", "n", "text_len"):
         assert getattr(got, name) == int(getattr(ref, name)), name
     assert sorted(got.kmer_tables) == sorted(ref.kmer_tables)
@@ -190,26 +189,45 @@ def test_shard_equal_to_bwtpu_upload(sa_rate):
         np.testing.assert_array_equal(t.numpy(), np.asarray(ref.kmer_tables[dd]))
 
 
+@pytest.mark.parametrize("sa_rate", [1, 4, 8])
+def test_shard_equal_to_bwtpu_upload(sa_rate):
+    idx = build_fm_index(random_genome(5000, seed=sa_rate),
+                         EngineConfig(sa_rate=sa_rate, read_len=60))
+    ref = jax.tree.map(lambda x: x[0], je.upload_index([idx]).shard)
+    got = te.upload_index([idx], torch.device("cpu"))
+    assert len(got) == 1
+    _assert_shard_equal(got[0], ref)
+
+
 def test_upload_refuses_uncovered_indexes():
-    """Several shards (slice 5) are refused; an sa_rate == 1 index uploads
-    with bwtpu's locv table; an index without the multi-step lattice
-    uploads with bwtpu's (1, 1) dummy, which sends the pipelines to the
-    1-step path."""
+    """An sa_rate == 1 index uploads with bwtpu's locv table; an index
+    without the multi-step lattice uploads with bwtpu's (1, 1) dummy,
+    which sends the pipelines to the 1-step path; several shards (refused
+    until the port covered them) upload as one Shard each, equal to
+    bwtpu's list form (upload_index(stacked=False)), at sa_rate 1 with
+    the locv table of each."""
     g = random_genome(3000, seed=1)
     idx1 = build_fm_index(g, EngineConfig(sa_rate=1))
     np.testing.assert_array_equal(
-        te.upload_index([idx1], "cpu").locv.numpy(),
+        te.upload_index([idx1], "cpu")[0].locv.numpy(),
         np.asarray(jax.tree.map(lambda x: x[0], je.upload_index([idx1]).shard).locv))
     idx0 = build_fm_index(g, EngineConfig(sa_rate=4, occ_step=0))
-    got = te.upload_index([idx0], "cpu")
+    got = te.upload_index([idx0], "cpu")[0]
     ref = jax.tree.map(lambda x: x[0], je.upload_index([idx0]).shard)
     for name in ("latk", "latk_inv"):
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name)))
     assert te.shard_occ_step(got) == je._shard_occ_step(ref) == 0
     idx = build_fm_index(g, EngineConfig(sa_rate=4))
-    assert te.shard_occ_step(te.upload_index([idx], "cpu")) == 3
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        te.upload_index([idx, idx], "cpu")
+    assert te.shard_occ_step(te.upload_index([idx], "cpu")[0]) == 3
+    for sa_rate in (1, 4):
+        shards, _ = build_sharded_index(g, 3, config=EngineConfig(sa_rate=sa_rate),
+                                        overlap=64)
+        got = te.upload_index(shards, "cpu")
+        ref = je.upload_index(shards, stacked=False).shard
+        assert len(got) == len(ref) == 3
+        for a, b in zip(got, ref):
+            _assert_shard_equal(a, b)
+        assert (got[0].locv.shape[-1] > 1) == (sa_rate == 1)
 
 
 def test_engine_cuda_has_no_cpu_fallback():

@@ -117,8 +117,8 @@ def test_pipeline_locv_on_off_identical(index1):
     on (verify_locv) and off (ssa gather + verify_nm), and equal
     bwtpu's."""
     L, cfg = 60, index1.config
-    on, off = te.upload_index([index1], "cpu", locv=True), te.upload_index(
-        [index1], "cpu", locv=False)
+    on, off = te.upload_index([index1], "cpu", locv=True)[0], te.upload_index(
+        [index1], "cpu", locv=False)[0]
     assert on.locv.shape[-1] == tv2.locv_row_width(L) and off.locv.shape == (1, 1)
     depths = sorted(index1.kmer_tables)
     d, d_seed = te.pick_kmer_depth(depths, L), te.pick_kmer_depth(depths, L // 3)
@@ -168,7 +168,7 @@ def test_engine_sa_rate_1_matches_bwtpu(index1, k):
     """Read lists (uniform: packed pipelines; mixed lengths: 1-step
     pipelines, dense) and blocks, with the locv table on."""
     ej, et = je.Engine([index1]), te.Engine([index1], device="cpu")
-    assert et.shard.locv.shape[-1] > 1  # auto-on at sa_rate 1
+    assert et.dev_shards[0].locv.shape[-1] > 1  # auto-on at sa_rate 1
     uniform, _ = simulate_reads(GENOME, 80, read_len=60, max_mismatches=2, n_frac=0.01,
                                 seed=k + 20)
     mixed = uniform[:40] + simulate_reads(GENOME, 40, read_len=37, max_mismatches=2,
@@ -218,15 +218,15 @@ def test_upload_index_locv_rule(index1, monkeypatch):
     LOCV_MAX_BYTES, as bwtpu decides; requested at sa_rate != 1: an
     error."""
     ref = jax.tree.map(lambda x: x[0], je.upload_index([index1]).shard)
-    got = te.upload_index([index1], "cpu")
+    got = te.upload_index([index1], "cpu")[0]
     np.testing.assert_array_equal(got.locv.numpy(), np.asarray(ref.locv))
     assert te.LOCV_MAX_BYTES == je.LOCV_MAX_BYTES
     g = random_genome(3000, seed=1)
     for cfg in (EngineConfig(sa_rate=1, occ_step=0), EngineConfig(sa_rate=4)):
         idx = build_fm_index(g, cfg)
-        assert te.upload_index([idx], "cpu").locv.shape == (1, 1)
+        assert te.upload_index([idx], "cpu")[0].locv.shape == (1, 1)
         assert np.asarray(je.upload_index([idx]).shard.locv).shape[-2:] == (1, 1)
     with pytest.raises(ValueError, match="sa_rate == 1"):
         te.upload_index([build_fm_index(g, EngineConfig(sa_rate=4))], "cpu", locv=True)
     monkeypatch.setattr(te, "LOCV_MAX_BYTES", index1.n * 4)
-    assert te.upload_index([index1], "cpu").locv.shape == (1, 1)
+    assert te.upload_index([index1], "cpu")[0].locv.shape == (1, 1)

@@ -48,7 +48,7 @@ def _pipelines_equal(idx, reads, k, L, **kw):
     rw, ab = je.pack_reads_for_bench(reads)
     jshard = jax.tree.map(lambda x: x[0], je.upload_index([idx]).shard)
     want = [np.asarray(o) for o in je.tiered_pipeline_packed(jshard, rw, ab, **opts)]
-    got = te.tiered_pipeline_packed(te.upload_index([idx], "cpu"), _t(rw), _t(ab), **opts)
+    got = te.tiered_pipeline_packed(te.upload_index([idx], "cpu")[0], _t(rw), _t(ab), **opts)
     got = [o.numpy() for o in got]
     for cnt_i, lists in ((3, (0, 1, 2)), (7, (4, 5, 6)), (9, (8,))):
         cnt = int(want[cnt_i])
@@ -139,7 +139,7 @@ def test_tiered_healing_and_escalated_count_match_bwtpu():
     assert et.stats.heals >= 1
     # one level's escalated count, times the levels run
     one = te.Engine([idx], device="cpu")
-    out = one.dispatch_block(blk, 2, pad_to=16, tiered=True)[4]
+    out = one.dispatch_block(blk, 2, pad_to=16, tiered=True)[4][0]  # the one shard's
     assert et.stats.escalated == (et.stats.heals + 1) * int(out[9]) > blk.n
 
 
