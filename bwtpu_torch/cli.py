@@ -208,7 +208,7 @@ def _align_read_lists(engine, reads, manifest, out_path, k, bs, start_batch,
     (sw.rescore_candidates, on the engine's device) as an AS:i tag."""
     from bwtpu_torch.golden import select_primary
     from bwtpu_torch.sam import emit_sam, sam_header
-    from bwtpu_torch.sw import rescore_candidates
+    from bwtpu_torch import sw
 
     out = sys.stdout if out_path in (None, "-") else open(out_path, mode)
     t_start = time.time()
@@ -225,9 +225,8 @@ def _align_read_lists(engine, reads, manifest, out_path, k, bs, start_batch,
             tags = None
             if rescore:
                 primaries = [[select_primary(h)[0]] if h else [] for h in hits]
-                scores = rescore_candidates(engine, chunk, primaries)
-                tags = [f"AS:i:{scores[(i, 0)]}" if (i, 0) in scores else None
-                        for i in range(len(chunk))]
+                tags = sw.as_tags(sw.rescore_candidates(engine, chunk, primaries),
+                                  len(chunk))
             emit_sam(chunk, hits, manifest.contigs, out, header=False, tags_per_read=tags)
             total += len(chunk)
             _log_batch(bi0, len(chunk), hits, t0)

@@ -17,8 +17,21 @@
 // row 0; unsigned adds wrap exactly like the int32 sum of the plain
 // version. Indices must lie in [0, N), as index_select requires.
 //
-// What bounds it on an H100: one dependent row load per index; once the
-// table leaves L2 (50 MB) the loads are DRAM-latency and sector bound.
+// What bounds it on an H100: one row load per index, each a random 16-512
+// B piece of a table that is usually larger than the 50 MB L2, so the
+// card's random-access rate for rows of that size, not its 3.35 TB/s
+// stream rate. scripts/torch_gather_ab.py measures it: from a 297 MB
+// table, 32 B rows (Wr 8) cost as much per row as 64 B rows (Wr 16), and
+// the L2 fetch granularity hint (32, 64 or 128 B) changes neither. 64 B
+// is the card's smallest random access, and its rate of such accesses
+// (about half of 3.35 TB/s in 64 B pieces) sets the pace; this design
+// already runs at that rate. Tried and dropped, as no faster beyond the
+// spread between runs: a persistent grid (as many CTAs as the SMs hold,
+// each walking tiles of 1,024 indices with the next tile's indices loaded
+// ahead into registers and stored to shared memory, and its sums kept in
+// registers to the end); the same with each tile brought in by one bulk
+// copy (cp.async.bulk and an mbarrier); and a grid of 1 or 2 CTAs per SM,
+// which was slower at every table size.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -129,6 +142,17 @@ extern "C" int bwtpu_row_gather_sum(const void* table, int Wr, int vec,
                : launch<1>((const int*)table, Wr, (const int*)idx, n_blocks, G,
                            inflight, (unsigned*)out, s);
   return (int)err;
+}
+
+// The L2 fetch granularity hint (cudaLimitMaxL2FetchGranularity, bytes) of
+// the current device: sets it to `bytes` when bytes > 0 and returns the
+// value it had, or -1 on an error. scripts/torch_gather_ab.py's probe.
+extern "C" int bwtpu_l2_fetch_granularity(int bytes) {
+  size_t was = 0;
+  if (cudaDeviceGetLimit(&was, cudaLimitMaxL2FetchGranularity) != cudaSuccess) return -1;
+  if (bytes > 0 && cudaDeviceSetLimit(cudaLimitMaxL2FetchGranularity, (size_t)bytes) != cudaSuccess)
+    return -1;
+  return (int)was;
 }
 
 extern "C" const char* bwtpu_cuda_error_name(int err) {

@@ -14,6 +14,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,14 +47,16 @@ def _nvcc() -> str:
 
 
 def _paths(name: str) -> tuple[str, str]:
-    """(source, cached library path) of csrc/<name>.cu; the cache key
-    hashes the source, every csrc/*.cuh header and the flags."""
+    """(source, cached library path) of csrc/<name>.cu (name may be a path
+    relative to csrc, as an A/B script's source from elsewhere is); the
+    cache key hashes the source, every csrc/*.cuh header and the flags."""
     src = os.path.join(CSRC, name + ".cu")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
-    return src, os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    stem = name.replace("/", "_")
+    return src, os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 
 
 def _load(name: str, so: str, info: dict) -> ctypes.CDLL:
@@ -94,6 +97,53 @@ def build_all(names) -> None:
             _load(name, so, {"seconds": time.perf_counter() - t0, "ptxas": err})
         if failed:
             raise RuntimeError("\n".join(failed))
+
+
+def sass(name: str):
+    """`cuobjdump -sass` of csrc/<name>.cu's built library (building it if
+    needed), or None where the toolkit has no cuobjdump."""
+    build_all([name])
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    exe = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    return subprocess.run([exe, "-sass", _paths(name)[1]], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+
+
+def sass_loops(listing: str) -> dict:
+    """{kernel function: [(instructions, {opcode: count}), ...]} of a
+    `cuobjdump -sass` listing: one entry per backward branch (a loop),
+    the instructions from its target to the branch, largest first."""
+    out, fn, code = {}, None, []
+
+    def close():
+        if fn is None:
+            return
+        at = {addr: i for i, (addr, _) in enumerate(code)}
+        found = []
+        for i, (addr, ins) in enumerate(code):
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
+            if m and int(m.group(1), 16) <= addr and int(m.group(1), 16) in at:
+                body = [c.split()[0] for _, c in code[at[int(m.group(1), 16)]:i + 1]]
+                ops = {}
+                for op in (b.split(".")[0] for b in body):
+                    ops[op] = ops.get(op, 0) + 1
+                found.append((len(body), ops))
+        out[fn] = sorted(found, key=lambda f: -f[0])
+
+    for line in listing.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            close()
+            fn, code = m.group(1), []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and fn is not None:
+            ins = re.sub(r"^@!?U?P\w+\s+", "", m.group(2))
+            code.append((int(m.group(1), 16), ins))
+    close()
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:

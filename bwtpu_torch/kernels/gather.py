@@ -10,7 +10,9 @@ column sum of table[idx[:(n // G) * G]] in row 0, wrapping mod 2^32, and
 rows 1-7 zero, as the TPU kernel's (8, Wr) accumulator block does.
 
 The engine does not call it (the reference's engine has no such stage):
-scripts/torch_gather_ab.py and chip_smoke.py measure it.
+scripts/torch_gather_ab.py and chip_smoke.py measure it, and
+`l2_fetch_granularity` reads and sets the card's L2 fetch granularity hint
+for the A/B's probe.
 """
 
 from __future__ import annotations
@@ -63,6 +65,20 @@ def row_gather_sum(table, idx, G: int = 1024, inflight: int = 8):
 
 
 row_gather_sum.launches = 0  # kernel launches since the last reset
+
+
+def l2_fetch_granularity(nbytes: int = 0) -> int:
+    """The current CUDA device's L2 fetch granularity hint
+    (cudaLimitMaxL2FetchGranularity) in bytes; when nbytes > 0 it is set
+    to nbytes, and the value it had is returned. Raises on a CUDA error."""
+    f = _lib().bwtpu_l2_fetch_granularity
+    if f.argtypes is None:
+        f.restype = ctypes.c_int
+        f.argtypes = [ctypes.c_int]
+    was = f(int(nbytes))
+    if was < 0:
+        raise RuntimeError(f"l2_fetch_granularity: cudaDeviceSetLimit({nbytes}) failed")
+    return was
 
 
 def _lib():

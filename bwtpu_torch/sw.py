@@ -31,30 +31,39 @@ def sw_score_plain(text, text_lens, reads, read_lens, band: int = 8, match: int 
                    mismatch: int = -3, gap: int = -4):
     """Best local-alignment score per lane (int32[B]), banded around the
     diagonal: band cell w of read row i (1-based) is text position
-    j = i + w - band. The rows run over all L columns of `reads`, as in
-    bwtpu; plain torch, the reference's operations in its order."""
+    j = i + w - band. Plain torch in the kernel's order (csrc/sw.cu): a
+    lane's rows end at min(L, read_len, text_len + band), the last one
+    with a cell inside the read and the text (later rows are all zero in
+    the reference); row i's valid cells are w in [lo, hi] (both masks);
+    the scan step is max(cur[w], cur[w - 1] + gap), which equals the
+    reference's max(cur[w], max(cur[w - 1] + gap, 0)) since cur >= 0."""
     B, L = reads.shape
     W = 2 * band + 1
+    dev = reads.device
     if text.shape[1] == 0:  # every cell is outside the text
         text = text.new_zeros((B, 1))
     Lt = text.shape[1]
-    w_idx = torch.arange(W, dtype=torch.int64, device=reads.device)
-    prev = torch.zeros((B, W), dtype=torch.int32, device=reads.device)
-    best = torch.zeros(B, dtype=torch.int32, device=reads.device)
+    tl, rl = text_lens.long(), read_lens.long()
+    end = torch.minimum(torch.minimum(rl, tl + band), torch.full_like(rl, L))
+    end = torch.where(tl >= 1, end, 0).clamp(min=0)
+    w_idx = torch.arange(W, dtype=torch.int64, device=dev)
+    prev = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    best = torch.zeros(B, dtype=torch.int32, device=dev)
     zero = prev.new_zeros((B, 1))
-    for i in range(1, L + 1):
+    for i in range(1, int(end.max()) + 1 if B else 1):
+        lo = max(0, band + 1 - i)
+        hi = (tl - i + band).clamp(max=2 * band)
+        ok = (w_idx >= lo).unsqueeze(0) & (w_idx.unsqueeze(0) <= hi.unsqueeze(1)) & (
+            i <= end).unsqueeze(1)
         rc = reads[:, i - 1]
-        j = i + w_idx - band
-        ok = (j >= 1).unsqueeze(0) & (j.unsqueeze(0) <= text_lens.unsqueeze(1)) & (
-            i <= read_lens).unsqueeze(1)
-        tc = text.index_select(1, (j - 1).clamp(0, Lt - 1))
+        tc = text.index_select(1, (i + w_idx - band - 1).clamp(0, Lt - 1))
         s = torch.where(tc == rc.unsqueeze(1), match, mismatch).to(torch.int32)
         up = torch.cat([prev[:, 1:], zero], dim=1)
         cur = torch.maximum(torch.maximum(prev + s, up + gap), torch.zeros_like(prev))
         cur = torch.where(ok, cur, 0)
         # left dependency within the row: a sequential pass over the band
         for w in range(1, W):
-            cur[:, w] = torch.maximum(cur[:, w], (cur[:, w - 1] + gap).clamp(min=0))
+            cur[:, w] = torch.maximum(cur[:, w], cur[:, w - 1] + gap)
         cur = torch.where(ok, cur, 0)
         best = torch.maximum(best, cur.max(1).values)
         prev = cur
@@ -141,8 +150,6 @@ def rescore_candidates(engine, reads, hits, band: int = 8, flank: int = 8):
     in the band) are cut from the engine's host shards, a hit's window
     from the first shard that contains its position, and scored in one
     sw_score_batch call on the engine's device."""
-    from bwtpu_torch import dna
-
     shards = engine.shards
     starts = np.array([sh.shard_offset for sh in shards], dtype=np.int64)
     ends = starts + np.array([sh.text_len for sh in shards], dtype=np.int64)
@@ -160,6 +167,29 @@ def rescore_candidates(engine, reads, hits, band: int = 8, flank: int = 8):
     rev = np.array(rev_l, dtype=bool)
     ri_a = np.array(ri_l, dtype=np.int32)
 
+    rd_f, rd_r, rlen = _encode_reads(reads)
+    # first shard containing each position: shard ends are increasing,
+    # so it's the first end strictly beyond pos (overlap regions belong
+    # to the earlier shard, matching the engine's emission)
+    sid = np.searchsorted(ends, pos, side="right")
+    lanes_rlen = rlen[ri_a]
+    lo = np.maximum(0, pos - starts[sid] - flank)
+    hi_ = np.minimum(ends[sid] - starts[sid], pos - starts[sid] + lanes_rlen + flank)
+    tlen = (hi_ - lo).astype(np.int32)
+    text = _cut_windows(shards, sid, lo, tlen)
+
+    rd = np.where(rev[:, None], rd_r[ri_a], rd_f[ri_a])
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(  # noqa: E731
+        engine.device)
+    scores = sw_score_batch(put(text), put(tlen), put(rd), put(lanes_rlen), band).cpu().numpy()
+    return {owner: int(s) for owner, s in zip(owners, scores)}
+
+
+def _encode_reads(reads):
+    """Forward and reverse-complement codes of each read, left-aligned in
+    int32[n, max length] (zero-padded), and the lengths."""
+    from bwtpu_torch import dna
+
     L = max(len(r.seq) for r in reads)
     rd_f = np.zeros((len(reads), L), np.int32)
     rd_r = np.zeros((len(reads), L), np.int32)
@@ -170,16 +200,13 @@ def rescore_candidates(engine, reads, hits, band: int = 8, flank: int = 8):
         rd_f[i, : len(codes)] = codes
         rd_r[i, : len(rc)] = rc
         rlen[i] = len(codes)
+    return rd_f, rd_r, rlen
 
-    # first shard containing each position: shard ends are increasing,
-    # so it's the first end strictly beyond pos (overlap regions belong
-    # to the earlier shard, matching the engine's emission)
-    sid = np.searchsorted(ends, pos, side="right")
-    lanes_rlen = rlen[ri_a]
-    lo = np.maximum(0, pos - starts[sid] - flank)
-    hi_ = np.minimum(ends[sid] - starts[sid], pos - starts[sid] + lanes_rlen + flank)
-    tlen = (hi_ - lo).astype(np.int32)
-    B, Lt = len(owners), int(tlen.max())
+
+def _cut_windows(shards, sid, lo, tlen):
+    """int32[B, max tlen] text codes: lane b's window [lo, lo + tlen) of
+    shard sid[b] (shard coordinates), zero past tlen."""
+    B, Lt = len(sid), int(tlen.max())
     text = np.zeros((B, Lt), np.int32)
     col = np.arange(Lt, dtype=np.int64)[None, :]
     for s, sh in enumerate(shards):
@@ -190,9 +217,10 @@ def rescore_candidates(engine, reads, hits, band: int = 8, flank: int = 8):
         idx = np.clip(lo[m][:, None] + col, 0, sh.text_len - 1)
         vals = ((words[idx >> 4] >> (2 * (idx & 15))) & 3).astype(np.int32)
         text[m] = np.where(col < tlen[m][:, None], vals, 0)
+    return text
 
-    rd = np.where(rev[:, None], rd_r[ri_a], rd_f[ri_a])
-    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(  # noqa: E731
-        engine.device)
-    scores = sw_score_batch(put(text), put(tlen), put(rd), put(lanes_rlen), band).cpu().numpy()
-    return {owner: int(s) for owner, s in zip(owners, scores)}
+
+def as_tags(scores: dict, n_reads: int) -> list:
+    """Per read, the AS:i tag of its primary hit's score (hit index 0 of
+    `scores`, as rescore_candidates returns it), or None without one."""
+    return [f"AS:i:{scores[(i, 0)]}" if (i, 0) in scores else None for i in range(n_reads)]

@@ -8,7 +8,7 @@ Phases, in order; any failure raises and the exit code is not 0:
   2. build and load the port's native host library (g++, from
      bwtpu_torch/csrc/host; required), then the seven CUDA kernels
      (nvcc, sm_90a) from bwtpu_torch/csrc, one nvcc per source, all
-     started together;
+     started together; registers, stack frame and spills of each source;
   3. `build-index --sa-rate 1` of the E. coli-size genome (phase 7's
      index); each kernel against its plain-torch version on the card
      (exact equality), with CUDA-event times of both (a run of 50
@@ -23,7 +23,7 @@ Phases, in order; any failure raises and the exit code is not 0:
      that table (Wr 16) and at the 9.3 MB multi-step lattice (Wr 128);
      verify_nm's run-time-W instance at W = 25 (400 bp reads); sw_band on
      the very arguments --rescore hands it for one batch of phase 6's
-     reads at k = 2;
+     reads at k = 2, with the SASS size of its interior row loop;
   4. phiX174 through the port's CLI on the card, byte-equal to
      data/phiX174_golden.sam;
   5. slice 1's path at E. coli scale: `build-index` with the CLI
@@ -47,11 +47,15 @@ Phases, in order; any failure raises and the exit code is not 0:
   8. the A/B entry point of the row gather (scripts/torch_gather_ab.py)
      at a locv row's width, at the text-row table's size (phase 3 timed
      the locv table's): an L2-resident gather rate, against which
-     search_chain1's L2 sectors are read;
+     search_chain1's L2 sectors are read; then the L2 fetch granularity
+     probe: ns per row at Wr 8, 16 and 32 from a 297 MB table, at the
+     card's default hint and at 32, 64 and 128 B;
   9. --rescore: phase 6's FASTA on phase 5's index at k = 2 through the
      port CLI: every AS:i tag equal to sw_score_plain on the card for the
      same windows, 256 sampled primaries equal to sw_score_reference,
-     sw_band launched;
+     sw_band launched; the host time of rescore_candidates split into the
+     window cut, the per-read encode loop, the sw_score_batch call and
+     the rest, and the AS formatting;
  10. paired-end on a sharded index: a random genome of chr21's length
      (46,709,983 bp, the same repeat family at the same density),
      `build-index --shards 2 --jobs 2` at the CLI defaults (both shards
@@ -330,9 +334,10 @@ def sw_kernel(idx, batch) -> dict:
     batch (16,384 of phase 6's reads, k = 2, on the CLI-default index):
     Engine.align_batch, the primary of each mapped read, then
     sw.rescore_candidates with sw_score_batch captured. Exact equality
-    with sw_score_plain, CUDA-event times of both, and the bound: each
-    lane's text window and read codes (and the two lengths) read once, one
-    score written; ~10 integer operations per band cell and row."""
+    with sw_score_plain, CUDA-event times of both, the bound (each lane's
+    text window and read codes and the two lengths read once, one score
+    written; ~10 integer operations per band cell and row), and the SASS
+    of the band-8 instance's row loop."""
     import torch
 
     from bwtpu_torch import sw
@@ -357,10 +362,37 @@ def sw_kernel(idx, batch) -> dict:
     band = 8
     b = bound((text.numel() + reads.numel() + 3 * B) * 4, B * L * (2 * band + 1) * 10)
     say(f"  sw_band {B} lanes x L {L}, Lt {text.shape[1]}, band {band} (--rescore's call for "
-        f"one Read-list batch at k = 2): equal; kernel {ms:.4f} ms, plain {plain:.4f} ms; "
-        f"bound {b['bound_ms']:.5f} ms ({b['bound_by']}: {b['bound_bytes']} B, "
-        f"{b['bound_ops']} ops); scores {int(want.min())}-{int(want.max())}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, **b)
+        f"one Read-list batch at k = 2): equal; kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms; bound {b['bound_ms']:.5f} ms ({b['bound_by']}: "
+        f"{b['bound_bytes']} B, {b['bound_ops']} ops); scores {int(want.min())}-"
+        f"{int(want.max())}; read length {float(rl.float().mean()):.1f} on average")
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, **b)
+    rec.update(sw_sass(band))
+    return rec
+
+
+def sw_sass(band: int) -> dict:
+    """The interior row loop (the largest loop; 4 rows an iteration, as
+    csrc/sw.cu unrolls it) of each sw_band instance in SASS, where the
+    toolkit has cuobjdump: its instructions, and for the `band` instance
+    its DPX instructions; {} without cuobjdump."""
+    from bwtpu_torch.kernels import _build
+
+    listing = _build.sass("sw")
+    if listing is None:
+        say("  sw_band SASS: no cuobjdump in the toolkit")
+        return {}
+    loops = _build.sass_loops(listing)
+    sizes = {}
+    for fn, found in loops.items():
+        if "sw_band_kernel" in fn and found:
+            sizes[int(fn.split("ILi")[1].split("E")[0])] = found[0]
+    size, ops = sizes[band]
+    dpx = sum(v for k, v in ops.items() if k.startswith(("VIADDMNMX", "VIMNMX")))
+    say(f"  sw_band interior row loop in SASS (4 rows an iteration), instructions by band: "
+        f"{ {k: sizes[k][0] for k in sorted(sizes)} }; band {band}: {size}, of which DPX "
+        f"{dpx}; most frequent {sorted(ops.items(), key=lambda kv: -kv[1])[:6]}")
+    return {"row_loop_sass": size, "row_loop_dpx": dpx}
 
 
 @contextlib.contextmanager
@@ -383,6 +415,37 @@ def capturing(owner, name: str, calls: list):
         setattr(owner, name, orig)
         if hasattr(orig, "launches"):  # the launches made under the capture
             orig.launches += rec.launches
+
+
+@contextlib.contextmanager
+def timing(owner, name: str, secs: dict, sync: bool = False):
+    """Add the wall seconds of every call of owner.name while the block
+    runs to secs[name] (0.0 without a call); with sync, the card is
+    synchronised before and after each call, so its device work counts."""
+    import torch
+
+    orig = getattr(owner, name)
+    secs.setdefault(name, 0.0)
+
+    def timed(*args, **kw):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kw)
+        finally:
+            if sync:
+                torch.cuda.synchronize()
+            secs[name] += time.perf_counter() - t0
+
+    timed.launches = 0  # as in capturing: a wrapper counts on the name it is called by
+    setattr(owner, name, timed)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+        if hasattr(orig, "launches"):
+            orig.launches += timed.launches
 
 
 def main_path_kernels(idx, block_reads):
@@ -1217,11 +1280,22 @@ def phase_rescore(tmp: str, genome: str, idx_dir: str, reads):
     say(f"[9] --rescore: phase 6's {N_READS} FASTA reads, k = 2, phase 5's index")
     fa, sam = os.path.join(tmp, "reads.fa"), os.path.join(tmp, "rescore.sam")
     calls: list = []
+    secs: dict = {}
     reset_launches()
-    with capturing(sw, "sw_score_batch", calls):
+    with capturing(sw, "sw_score_batch", calls), \
+            timing(sw, "sw_score_batch", secs, sync=True), \
+            timing(sw, "rescore_candidates", secs), timing(sw, "_encode_reads", secs), \
+            timing(sw, "_cut_windows", secs), timing(sw, "as_tags", secs):
         summary = run_cli(["align", idx_dir, fa, "-o", sam, "-k", "2", "--batch-size",
                            str(BATCH), "--device", "cuda", "--rescore"])
     launches = read_launches()
+    parts = ("_cut_windows", "_encode_reads", "sw_score_batch")
+    rest = secs["rescore_candidates"] - sum(secs[k] for k in parts)
+    say(f"  host time of --rescore over {len(calls)} batches (s): rescore_candidates "
+        f"{secs['rescore_candidates']:.3f} = window cut {secs['_cut_windows']:.3f} + per-read "
+        f"encode loop {secs['_encode_reads']:.3f} + sw_score_batch call (synced) "
+        f"{secs['sw_score_batch']:.3f} + the rest (hit lists, shard lookup, copies) "
+        f"{rest:.3f}; AS formatting {secs['as_tags']:.3f}; CLI wall {summary['wall_s']} s")
     require(launches["sw_band"] == len(calls) == N_READS // BATCH
             and launches["search_chain1"] > 0, f"--rescore: launches {launches}, "
                                                f"{len(calls)} calls")
@@ -1423,26 +1497,39 @@ def phase_wide(tmp: str):
 
 def phase_gather_ab():
     """The row gather's A/B entry point (scripts/torch_gather_ab.py) at a
-    locv row's width and the text-row table's size (2.3 MB, L2-resident);
-    returns the launches of that run and the kernel's best rate there in
-    bytes per ms."""
+    locv row's width and the text-row table's size (2.3 MB, L2-resident),
+    then the L2 fetch granularity probe at Wr 8, 16 and 32 from a 297 MB
+    table (DRAM-resident, the locv table's size); returns the launches of
+    both runs and the kernel's best L2-resident rate in bytes per ms."""
     import importlib.util
 
-    say("[8] scripts/torch_gather_ab.py --width 16 --sizes-mb 2.3")
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
                         "torch_gather_ab.py")
     spec = importlib.util.spec_from_file_location("torch_gather_ab", path)
     ab = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ab)
     reset_launches()
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = ab.main(["--width", "16", "--sizes-mb", "2.3", "--reps", "5"])
-    say(out.getvalue().rstrip())
+    runs = {}
+    for argv in (["--widths", "16", "--sizes-mb", "2.3", "--reps", "5"],
+                 ["--widths", "8", "16", "32", "--sizes-mb", "297", "--reps", "5",
+                  "--granularity", "32", "64", "128"]):
+        say(f"[8] scripts/torch_gather_ab.py {' '.join(argv)}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = ab.main(argv)
+        say(out.getvalue().rstrip())
+        require(rc == 0, f"torch_gather_ab {' '.join(argv)}: rc {rc}")
+        runs[argv[argv.index("--sizes-mb") + 1]] = [
+            json.loads(ln) for ln in out.getvalue().splitlines()[1:]]
     launches = read_launches()
-    require(rc == 0 and launches["row_gather_sum"] > 0,
-            f"torch_gather_ab: rc {rc}, launches {launches}")
-    rec = json.loads(out.getvalue().splitlines()[-1])
+    require(launches["row_gather_sum"] > 0, f"torch_gather_ab: launches {launches}")
+    for rec in runs["297"]:
+        probe = {g: min(v["gather"]) for g, v in rec["granularity_ns_per_row"].items()}
+        say(f"  Wr {rec['width']} ({rec['width'] * 4} B rows) from 297 MB: "
+            f"{min(rec['kernel_ns_per_row'].values()):.4f} ns/row at the default hint "
+            f"({rec['l2_fetch_granularity']} B); with the hint at "
+            + ", ".join(f"{g} B {ns:.4f}" for g, ns in probe.items()))
+    rec = runs["2.3"][-1]
     ns_per_row = min(rec["kernel_ns_per_row"].values())
     return launches, rec["width"] * 4 / ns_per_row * 1e6
 

@@ -397,6 +397,108 @@ def test_sw_band_kernel_matches_plain(cuda, band, B, Lt, L):
         assert int(want.max()) > 2 * min(L, Lt) // 2
 
 
+def _sw_edge_lanes(rng, B, band, Lt_max, L_max):
+    """B lanes over sw_band's edge cases (the CPU tests' cases of
+    tests/test_torch_sw.py): read_len 0, reads shorter than L by more than
+    the band, text_len 0 and below the band, lanes of one warp that end at
+    very different rows; the rest random, half of them windows that hold
+    their read with substitutions. Codes 0-4, zero past each length."""
+    text = rng.integers(0, 5, size=(B, Lt_max)).astype(np.int32)
+    reads = rng.integers(0, 5, size=(B, L_max)).astype(np.int32)
+    tl = rng.integers(0, Lt_max + 1, size=B).astype(np.int32)
+    rl = rng.integers(0, L_max + 1, size=B).astype(np.int32)
+    n = min(L_max, Lt_max)
+    reads[::2, :n] = np.where(rng.random((len(reads[::2]), n)) < 0.05, reads[::2, :n],
+                              text[::2, :n])
+    tl[0], rl[0] = Lt_max, L_max
+    rl[3], rl[4] = 0, max(0, L_max - band - 7)
+    tl[5], tl[6] = 0, band // 2
+    ends = np.array([1, 2, 5, L_max, 9, L_max - 1, 17, 3, L_max, 30, 11, L_max, 0, 44, 6, 25])
+    rl[32:48] = np.clip(ends, 0, L_max)
+    tl[32:48] = np.minimum(rl[32:48] + 2 * band, Lt_max)
+    for b in range(B):
+        reads[b, rl[b]:] = 0
+        text[b, tl[b]:] = 0
+    return text, tl, reads, rl
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band,match,mismatch,gap", [
+    (0, 2, -3, -4), (16, 2, -3, -4), (8, 1, 1, 0), (5, 3, -1, 0), (3, 2, 1, -1), (8, 2, -3, -4)],
+    ids=["band0", "band16", "positive_mismatch_gap0", "gap0", "positive_mismatch", "default"])
+@pytest.mark.parametrize("B,Lt,L", [(3000, 116, 100), (200, 300, 280), (77, 40, 64)],
+                         ids=["rescore", "long_rows", "short_rows"])
+def test_sw_band_kernel_edge_cases(cuda, band, match, mismatch, gap, B, Lt, L):
+    """sw_band against sw_score_plain on the edge lanes of the CPU tests,
+    with scores other than the defaults; long rows (L 280, Lt 300),
+    short ones, and lane counts that are no multiple of a CTA's 32."""
+    from bwtpu_torch.sw import sw_score_batch, sw_score_plain
+
+    rng = np.random.default_rng([band, match, mismatch + 10, gap + 10, B])
+    text, tl, reads, rl = _sw_edge_lanes(rng, B, band, Lt, L)
+    args = [_t(a, cuda) for a in (text, tl, reads, rl)]
+    kw = dict(band=band, match=match, mismatch=mismatch, gap=gap)
+    got = sw_score_batch(*args, **kw)
+    want = sw_score_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(want[3]) == int(want[5]) == 0 and int(want.max()) > 20
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Lt,L,offset", [(70, 1100, 1000, 0), (501, 116, 100, 1), (64, 35, 33, 3)],
+                         ids=["fewer_lanes_per_cta", "unaligned_rows", "odd_widths"])
+def test_sw_band_kernel_row_blocks(cuda, B, Lt, L, offset):
+    """The CTA's row blocks: rows too long for 32 lanes in one CTA's
+    shared memory (fewer lanes per CTA), rows that start off the bulk
+    copy's 16 B alignment (4 B copies instead) and widths whose blocks are
+    no multiple of 16 B."""
+    from bwtpu_torch.sw import sw_score_batch, sw_score_plain
+
+    rng = np.random.default_rng(B + Lt + offset)
+    text, tl, reads, rl = _sw_edge_lanes(rng, B, 8, Lt, L)
+
+    def placed(a):  # a contiguous copy `offset` int32 words past an aligned start
+        flat = torch.zeros(a.size + offset, dtype=torch.int32, device=cuda)
+        flat[offset:] = _t(a.ravel(), cuda)
+        return flat[offset:].view(a.shape)
+
+    args = [placed(text), _t(tl, cuda), placed(reads), _t(rl, cuda)]
+    assert (args[0].data_ptr() % 16 != 0) == (offset != 0)
+    got = sw_score_batch(*args)
+    want = sw_score_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(want.max()) > 20
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_idx,G", [
+    (5 * 1024, 1024),        # fewer G-blocks than SMs
+    (700 * 1024 + 300, 1024),  # more blocks than the SMs hold at once, no multiple of it
+    (3001, 1),               # G = 1: every index, n % 4 != 0
+    (999, 1000),             # G > n: nothing to sum
+    (40000, 37),             # odd G
+])
+@pytest.mark.parametrize("inflight", [4, 8, 16])
+def test_row_gather_sum_kernel_blocks(cuda, n_idx, G, inflight):
+    """The grid of G-blocks: fewer blocks than SMs, more than the SMs
+    hold at once and no multiple of that, G = 1, G > n, an odd G; and
+    indices that do not start 16 B aligned."""
+    from bwtpu_torch.kernels.gather import row_gather_sum, row_gather_sum_plain
+
+    rng = np.random.default_rng(n_idx + G + inflight)
+    N, Wr = 20000, 16
+    table = _t(rng.integers(-2**31, 2**31, size=(N, Wr), dtype=np.int64).astype(np.int32), cuda)
+    base = _t(rng.integers(0, N, size=n_idx + 1).astype(np.int32), cuda)
+    for idx in (base[:-1], base[1:]):  # aligned, then 4 B past alignment
+        got = row_gather_sum(table, idx, G, inflight)
+        want = row_gather_sum_plain(table, idx, G)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert bool(want[0].any()) == (n_idx >= G)
+
+
 @pytest.mark.gpu
 def test_sw_band_refuses_a_band_without_an_instance(cuda):
     from bwtpu_torch.sw import sw_score_batch

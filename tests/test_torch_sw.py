@@ -67,6 +67,46 @@ def test_sw_score_plain_matches_bwtpu(band, Lt_max, L_max, n_frac):
             t, r, band=band)
 
 
+def _edge_lanes(rng, band, Lt_max=70, L_max=60):
+    """64 lanes (two warps of the kernel) over the kernel's edge cases:
+    read_len 0, reads shorter than L by more than the band, text_len 0,
+    text_len below the band, and lanes of one warp that end at very
+    different rows (read lengths 1 .. L); the rest random, a third of
+    them substrings of their window."""
+    text, tl, reads, rl = _lanes(rng, 64, Lt_max, L_max, n_frac=0.03)
+    rl[3], rl[4] = 0, max(0, L_max - band - 7)  # no read; short by more than the band
+    tl[5], tl[6] = 0, band // 2  # no text; text shorter than the band
+    rl[32:48] = [1, 2, 5, L_max, 9, L_max - 1, 17, 3, L_max, 30, 11, L_max, 0, 44, 6, 25]
+    tl[32:48] = np.minimum(rl[32:48] + 2 * band, Lt_max)
+    for b in range(64):  # codes past a lane's length stay zero, as the port pads them
+        reads[b, rl[b]:] = 0
+        text[b, tl[b]:] = 0
+    return text, tl, reads, rl
+
+
+@pytest.mark.parametrize("band,match,mismatch,gap", [
+    (0, 2, -3, -4), (16, 2, -3, -4), (8, 1, 1, 0), (5, 3, -1, 0), (3, 2, 1, -1)],
+    ids=["band0", "band16", "positive_mismatch_gap0", "gap0", "positive_mismatch"])
+def test_sw_score_plain_in_kernel_order_matches_bwtpu(band, match, mismatch, gap):
+    """sw_score_plain (the kernel's order: rows end at min(L, read_len,
+    text_len + band), edge-row masks by [lo, hi], the scan without its
+    clamp at 0) against the jnp sw_score_batch and both oracles, at bands
+    0 and 16 and scores other than the defaults."""
+    rng = np.random.default_rng([band, match, mismatch + 10, gap + 10])
+    text, tl, reads, rl = _edge_lanes(rng, band)
+    kw = dict(band=band, match=match, mismatch=mismatch, gap=gap)
+    want = np.asarray(jsw.sw_score_batch(jnp.asarray(text), jnp.asarray(tl),
+                                         jnp.asarray(reads), jnp.asarray(rl), **kw))
+    got = tsw.sw_score_plain(*(torch.from_numpy(a) for a in (text, tl, reads, rl)), **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want[3] == want[5] == 0 and want.max() > 20
+    letters = np.array(list("ACGTN"))
+    for b in range(len(tl)):
+        t = "".join(letters[text[b, :tl[b]]])
+        r = "".join(letters[reads[b, :rl[b]]])
+        assert tsw.sw_score_reference(t, r, **kw) == want[b] == jsw.sw_score_reference(t, r, **kw)
+
+
 def test_sw_score_plain_exact_and_indel():
     """tests/test_sw.py's cases: a perfect match scores 2 per base, one
     deleted base costs one gap."""
