@@ -17,6 +17,8 @@ Subcommands:
                each primary hit as an AS:i tag, single-end) as in cli.py
   simulate     deterministic random genome + reads (+ pairs), byte-equal
                to `cli.py simulate`'s files for the same arguments
+  scaling      the ring's reads/s over 1, 2, 4, ... data groups of
+               --shards ranks (bwtpu_torch.dist), under torchrun
 
 Examples:
   python -m bwtpu_torch.cli build-index ref.fa idx/ --sa-rate 8
@@ -26,6 +28,7 @@ Examples:
   python -m bwtpu_torch.cli align idx/ r1.fq --paired r2.fq -o out.sam -k 2
   python -m bwtpu_torch.cli align idx/ reads.fa -o out.sam -k 2 --rescore
   python -m bwtpu_torch.cli simulate --scale ecoli -o data/sim --pairs 1000
+  torchrun --nproc-per-node 4 -m bwtpu_torch.cli scaling --shards 2
 
 The device defaults to cuda and never falls back: without a card the
 align command fails (pass --device cpu for the plain-torch versions).
@@ -456,6 +459,60 @@ def cmd_simulate(args):
     print(f"simulated {n} bp genome + {args.n_reads} reads -> {args.out}")
 
 
+def cmd_scaling(args):
+    """Ring-scaling harness (cli.py's cmd_scaling on torch.distributed):
+    run under torchrun, it aligns the same simulated reads over n_data =
+    1, 2, 4, ... data groups of --shards ranks while shards * n_data <=
+    the world, and prints reads/s and the efficiency against n_data = 1
+    from rank 0. The ranks outside a row wait for it. One process without
+    torchrun is a world of one."""
+    import torch.distributed as dist
+
+    from bwtpu_torch import multihost
+    from bwtpu_torch.config import EngineConfig
+    from bwtpu_torch.dist import DistEngine, make_layout
+    from bwtpu_torch.index import build_sharded_index
+    from bwtpu_torch.simulate import random_genome, simulate_reads
+
+    dev, created = multihost.initialize(None, 1, 0, args.device)
+    try:
+        cfg = EngineConfig(sa_rate=8, max_hits=4, max_cand=8, read_len=args.read_len)
+        genome = random_genome(args.genome_bp, seed=1)
+        shards, manifest = build_sharded_index(genome, args.shards, config=cfg,
+                                               overlap=cfg.read_len * 2)
+        reads, _ = simulate_reads(genome, args.n_reads, read_len=args.read_len,
+                                  max_mismatches=2, seed=2)
+        world, me = dist.get_world_size(), dist.get_rank()
+        base, rows, transport, nd = None, [], None, 1
+        while args.shards * nd <= world:
+            n = args.shards * nd
+            lay = make_layout(args.shards, list(range(n)))
+            if lay is not None:
+                eng = DistEngine(shards, manifest, layout=lay, device=dev)
+                transport = eng.transport
+                # rank r aligns block r of each batch, as bwtpu's devices do
+                warm, b = 2, -(-len(reads) // n)
+                eng.align_batch(reads[lay.rank * warm:(lay.rank + 1) * warm], k=args.k)
+                lay.total(0)  # start together
+                t0 = time.time()
+                eng.align_batch(reads[lay.rank * b:(lay.rank + 1) * b], k=args.k)
+                lay.total(0)  # the last rank's end
+                rps = len(reads) / (time.time() - t0)
+                base = rps if base is None else base
+                rows.append({"n_data": nd, "devices": n, "reads_per_s": round(rps, 1),
+                             "efficiency": round(rps / (base * nd), 3)})
+            dist.barrier()
+            nd *= 2
+        line = {"event": "scaling", "shards": args.shards, "rows": rows,
+                "device": str(dev), "transport": transport}
+        if me == 0:
+            print(json.dumps(line))
+        return line
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
 def _not_ported(what: str, slice_no: int):
     def refuse(args):
         raise NotImplementedError(f"{what} is ROADMAP slice {slice_no} of the port")
@@ -555,12 +612,21 @@ def main(argv=None):
     sm.add_argument("--seed", type=int, default=0)
     sm.set_defaults(fn=cmd_simulate)
 
-    for name, slice_no in (("bench", 9), ("scaling", 8)):
-        sp = sub.add_parser(name, help=f"not covered yet (ROADMAP slice {slice_no})")
-        sp.set_defaults(fn=_not_ported(f"the {name} subcommand", slice_no))
+    sc = sub.add_parser("scaling", help="ring-scaling efficiency harness (under torchrun)")
+    sc.add_argument("--shards", type=int, default=2)
+    sc.add_argument("--genome-bp", type=int, default=200_000)
+    sc.add_argument("--n-reads", type=int, default=2048)
+    sc.add_argument("--read-len", type=int, default=100)
+    sc.add_argument("-k", type=int, default=0)
+    sc.add_argument("--device", default="cuda",
+                    help="cuda (cuda:LOCAL_RANK, NCCL) or cpu (gloo)")
+    sc.set_defaults(fn=cmd_scaling)
+
+    bn = sub.add_parser("bench", help="not covered yet (ROADMAP slice 9)")
+    bn.set_defaults(fn=_not_ported("the bench subcommand", 9))
 
     args, rest = p.parse_known_args(argv)
-    if rest and args.cmd not in ("bench", "scaling"):  # their options refuse with them
+    if rest and args.cmd != "bench":  # its options refuse with it
         p.error(f"unrecognized arguments: {' '.join(rest)}")
     return args.fn(args)
 

@@ -68,7 +68,22 @@ Phases, in order; any failure raises and the exit code is not 0:
      4,096 reads of 400 bp at k = 2 through the port CLI (verify_nm's
      run-time-W instance): truth, brute force on 256 sampled reads, the
      SAM equal to an engine pass, verify_nm launched;
- 12. the result lines.
+ 12. the ring (bwtpu_torch.multihost over bwtpu_torch.dist's DistEngine),
+     ranks started as subprocesses with the environment torchrun sets:
+     12a. NCCL, one rank per card (world = the card count): phase 5's
+          index and reads, split into one stream per rank, at k = 0 and
+          2; then `python -m torch.distributed.run --nproc-per-node
+          <count> -m bwtpu_torch.cli scaling --shards 1`;
+     12b. two gloo ranks on card 0, their hops through host memory:
+          phase 10's 2-shard index, one shard per rank; its mate-1 reads
+          (32,768 per rank) at k = 0 and 2 and its pairs through
+          --paired at k = 2.
+     Each run's merged per-rank SAM bodies byte-equal to sam.emit_sam /
+     pair_and_emit_sam over the single-process Engine.align_all on the
+     same reads (which phases 5 and 10 hold against truth and brute
+     force); locate_walk, verify_nm and search_chain2 launched in every
+     rank and run; reads/s, wall, heals and transport per rank;
+ 13. the result lines.
 
 The genome is random at E. coli size (4,641,652 bp) with one dispersed
 repeat family (300 copies of a 12 bp motif), so that some 11-mer start
@@ -1343,7 +1358,8 @@ def phase_paired(tmp: str):
     byte-equal to it; pair truth; brute force on 256 sampled mate-1 reads
     against a single-end engine pass; no truncated read; locate_walk,
     verify_nm and search_chain2 launched at least once per shard and
-    block. Returns the launches of the columnar runs."""
+    block. Returns the launches of the columnar runs, the build's seconds
+    and the index directory and the two FASTQs (phase 12 reuses them)."""
     import numpy as np
     import torch
 
@@ -1437,7 +1453,8 @@ def phase_paired(tmp: str):
             f"{N_SAMPLED} reads ({n_bf} hits); CLI columnar {rate[0]} reads/s ({rate[1]} s); "
             f"launches per shard and block "
             f"{ {n: c / (2 * n_blocks) for n, c in stats[k].items()} }")
-    return {n: sum(st[n] for st in stats.values()) for n in stats[0]}, build_s
+    return ({n: sum(st[n] for st in stats.values()) for n in stats[0]}, build_s,
+            (idx_dir, fq1, fq2))
 
 
 def phase_wide(tmp: str):
@@ -1493,6 +1510,230 @@ def phase_wide(tmp: str):
     say(f"  truth {n}/{n}; brute force equal on {N_SAMPLED} reads ({n_bf} hits); CLI SAM equal "
         f"to the engine pass; {summary['reads_per_s']} reads/s; launches {launches}")
     return launches
+
+
+def ring_rank(spec_path: str) -> None:
+    """One rank of phase 12, started with the environment torchrun sets:
+    brings up the process group, runs bwtpu_torch.multihost.main on each
+    argv of the spec, and writes each run's summary and kernel launches
+    to the spec's output file."""
+    import torch.distributed as dist
+
+    from bwtpu_torch import multihost
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    multihost.initialize(None, 1, 0, spec["device"], spec["backend"])
+    runs = []
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            multihost.main(spec["warmup"])  # first launches, library loads
+        for argv in spec["runs"]:
+            reset_launches()
+            runs.append({"summary": multihost.main(argv), "launches": read_launches()})
+    finally:
+        dist.destroy_process_group()
+    with open(spec["out"], "w") as f:
+        json.dump(runs, f)
+
+
+def launch_ranks(tmp: str, name: str, device: str, backend: str, runs: list, warmup: list,
+                 timeout: float = 600) -> list:
+    """len(runs) rank processes on this machine with torchrun's
+    environment (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE,
+    MASTER_ADDR, MASTER_PORT), rank r running ring_rank over runs[r]
+    after warmup[r]; every rank is killed on a failure or at the timeout.
+    Returns each rank's runs."""
+    import socket
+
+    world = len(runs)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs, outs, logs = [], [], []
+    try:
+        for r in range(world):
+            spec, out, log = (os.path.join(tmp, f"{name}_rank{r}{x}")
+                              for x in (".json", ".out.json", ".log"))
+            with open(spec, "w") as f:
+                json.dump({"device": device, "backend": backend, "runs": runs[r],
+                           "warmup": warmup[r], "out": out}, f)
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port))
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", "import chip_smoke, sys; "
+                     "chip_smoke.ring_rank(sys.argv[1])", spec],
+                    cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT))
+            outs.append(out)
+            logs.append(log)
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(log) as f:
+                say(f.read()[-4000:])
+        require(p.returncode == 0, f"{name}: rank {r} exited with {p.returncode}")
+    res = []
+    for out in outs:
+        with open(out) as f:
+            res.append(json.load(f))
+    return res
+
+
+def sam_body(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return b"".join(ln for ln in f if not ln.startswith(b"@"))
+
+
+def split_fastq(tmp: str, name: str, reads, world: int) -> list[str]:
+    """One FASTQ per rank: rank r's contiguous block of `reads`."""
+    from bwtpu_torch.io import write_fastq
+
+    b = -(-len(reads) // world)
+    paths = [os.path.join(tmp, f"{name}_{r}.fq") for r in range(world)]
+    for r, path in enumerate(paths):
+        write_fastq(path, reads[r * b:(r + 1) * b])
+    return paths
+
+
+def ring_runs(tmp: str, smi: str, name: str, device: str, backend: str, index: str,
+              jobs: list, refs: dict) -> dict:
+    """Run the jobs ((label, k, per-rank mate-1 paths, per-rank mate-2
+    paths or None)) on len(paths) ranks, one after another in each rank;
+    hold each job's merged SAM body against refs[label] (bytes, reads,
+    wall, heals of the single-process Engine) and print the per-rank
+    numbers. Returns the launches summed over ranks and jobs, and each
+    job's rank summaries beside the Engine's numbers."""
+    from bwtpu_torch.io import read_fastq, write_fastq
+
+    world = len(jobs[0][2])
+
+    def argv(label, k, reads, mates=None):
+        return (["--index", index, "--reads", reads, "-k", str(k),
+                 "--out", os.path.join(tmp, f"{name}_{label}.sam"),
+                 "--batch-size", str(BATCH), "--device", device]
+                + (["--backend", backend] if backend else [])
+                + (["--paired", mates] if mates else []))
+
+    runs = [[argv(label, k, p1[r], p2[r] if p2 else None) for label, k, p1, p2 in jobs]
+            for r in range(world)]
+    # the warm-up: one batch of each rank's first stream, not timed
+    warm = [os.path.join(tmp, f"{name}_warmup_{r}.fq") for r in range(world)]
+    for r, path in enumerate(warm):
+        write_fastq(path, read_fastq(jobs[0][2][r])[:BATCH])
+    res = launch_ranks(tmp, name, device, backend, runs,
+                       [argv("warmup", 0, path) for path in warm])
+    total: dict = {}
+    table = {}
+    for j, (label, k, _, _) in enumerate(jobs):
+        out = os.path.join(tmp, f"{name}_{label}.sam")
+        merged = (sam_body(out) if world == 1 else
+                  b"".join(sam_body(f"{out}.h{r}") for r in range(world)))
+        ref = refs[label]
+        require(merged == ref["sam"], f"{name} {label}: the ranks' SAM differs from the "
+                                      f"single-process Engine's")
+        need = ("locate_walk", "verify_nm", "search_chain2")
+        for r in range(world):
+            launches, sm = res[r][j]["launches"], res[r][j]["summary"]
+            require(all(launches[n] > 0 for n in need),
+                    f"{name} {label}: rank {r} launched {launches}")
+            for n, c in launches.items():
+                total[n] = total.get(n, 0) + c
+            per = {n: launches[n] / sm["dispatches"] for n in need}
+            say(f"  {name} {label} rank {r}: {sm['reads_per_s']} reads/s, wall {sm['wall_s']} s, "
+                f"heals {sm['heals']}, transport {sm['transport']}, {sm['reads']} reads, "
+                f"{sm['dispatches']} dispatches, launches per dispatch {per}; {smi}")
+        say(f"  {name} {label}: SAM of the {world} rank(s) byte-equal to the single-process "
+            f"Engine's ({len(merged)} bytes); that Engine: {ref['reads'] / ref['wall']:.1f} "
+            f"reads/s, wall {ref['wall']:.2f} s (align_all + emit_sam), heals {ref['heals']}; "
+            f"{smi}")
+        table[label] = {"ranks": [res[r][j]["summary"] for r in range(world)],
+                        "engine": {x: ref[x] for x in ("reads", "wall", "heals")}}
+    return total, table
+
+
+def engine_sam(shards, contigs, mates1, k: int, mates2=None) -> dict:
+    """The single-process reference: Engine.align_all at batch BATCH over
+    the whole stream, emitted by sam.emit_sam (pair_and_emit_sam with
+    multihost's default inserts for pairs); bytes, reads, wall, heals."""
+    import torch
+
+    from bwtpu_torch.engine import Engine
+    from bwtpu_torch.sam import emit_sam, pair_and_emit_sam
+
+    eng = Engine(shards, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h1 = eng.align_all(mates1, k, batch_size=BATCH)
+    buf = io.StringIO()
+    if mates2 is None:
+        emit_sam(mates1, h1, contigs, buf, header=False)
+    else:
+        h2 = eng.align_all(mates2, k, batch_size=BATCH)
+        pair_and_emit_sam(list(zip(mates1, mates2)), h1, h2, contigs, buf, min_insert=0,
+                          max_insert=1000, header=False)
+    wall = time.perf_counter() - t0
+    n = len(mates1) * (1 if mates2 is None else 2)
+    return {"sam": buf.getvalue().encode(), "reads": n, "wall": wall,
+            "heals": eng.stats.heals}
+
+
+def phase_ring(tmp: str, smi: str, idx5: str, fq5: str, reads5, p10) -> dict:
+    import torch
+
+    from bwtpu_torch.index import load_index
+    from bwtpu_torch.io import read_fastq
+
+    n_cards = torch.cuda.device_count()
+    say(f"[12] the ring: bwtpu_torch.multihost on DistEngine; NCCL "
+        f"{'.'.join(map(str, torch.cuda.nccl.version()))}, {n_cards} card(s)")
+    t_phase = time.perf_counter()
+
+    # 12a: NCCL, one rank per card, phase 5's index and reads
+    shards, manifest = load_index(idx5)
+    refs = {f"k{k}": engine_sam(shards, manifest.contigs, reads5, k) for k in (0, 2)}
+    paths = split_fastq(tmp, "ring_a", reads5, n_cards)
+    say(f"  12a: {n_cards} NCCL rank(s), phase 5's index (1 shard) and {len(reads5)} reads "
+        f"in {n_cards} stream(s); on one card the ring makes no hop")
+    launches, _ = ring_runs(tmp, smi, "12a", "cuda", None, idx5,
+                            [(f"k{k}", k, paths, None) for k in (0, 2)], refs)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+                          str(n_cards), "-m", "bwtpu_torch.cli", "scaling", "--shards", "1"],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                         text=True, timeout=600)
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith('{"event": "scaling"')]
+    require(run.returncode == 0 and len(lines) == 1,
+            f"torchrun scaling: rc {run.returncode}; {run.stderr[-2000:]}")
+    line = json.loads(lines[0])
+    say(f"  torchrun --nproc-per-node {n_cards} -m bwtpu_torch.cli scaling --shards 1 "
+        f"({time.perf_counter() - t0:.1f} s): {json.dumps(line)}; {smi}")
+
+    # 12b: two gloo ranks on card 0, phase 10's 2-shard index
+    idx10, fq1, fq2 = p10
+    shards, manifest = load_index(idx10)
+    m1, m2 = read_fastq(fq1), read_fastq(fq2)
+    refs = {"k0": engine_sam(shards, manifest.contigs, m1, 0),
+            "k2": engine_sam(shards, manifest.contigs, m1, 2),
+            "paired_k2": engine_sam(shards, manifest.contigs, m1, 2, m2)}
+    p1, p2 = split_fastq(tmp, "ring_b1", m1, 2), split_fastq(tmp, "ring_b2", m2, 2)
+    say(f"  12b: 2 gloo ranks on cuda:0, their hops through host memory (not NVLink): "
+        f"phase 10's 2-shard index, one shard per rank; {len(m1)} mate-1 reads and "
+        f"{len(m1)} pairs, half per rank")
+    more, _ = ring_runs(tmp, smi, "12b", "cuda:0", "gloo", idx10,
+                        [("k0", 0, p1, None), ("k2", 2, p1, None), ("paired_k2", 2, p1, p2)],
+                        refs)
+    say(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return {n: launches[n] + more[n] for n in launches}
 
 
 def phase_gather_ab():
@@ -1672,15 +1913,16 @@ def main() -> int:
         ab_launches, l2_rate = phase_gather_ab()
         chain1_l2(records["search_chain1"], l2_rate)
         rescore_launches = phase_rescore(tmp, genome, idx_dir, list_reads)
-        paired_launches, paired_build_s = phase_paired(tmp)
+        paired_launches, paired_build_s, p10 = phase_paired(tmp)
         wide_launches = phase_wide(tmp)
+        ring_launches = phase_ring(tmp, smi, idx_dir, p5["fq"], reads, p10)
     paths = {"slice 1's path": launches, "the Read-list path": list_launches,
              "the sa_rate 1 path": locv_launches, "the --rescore path": rescore_launches,
              "paired-end on 2 shards": paired_launches, "wide reads": wide_launches,
-             "the gather A/B": ab_launches}
+             "the ring (every rank)": ring_launches, "the gather A/B": ab_launches}
     for what, counts in paths.items():
         say(f"  launches on {what}: {counts}")
-    say(f"[12] all phases passed in {time.perf_counter() - t_all:.1f} s on {smi} "
+    say(f"[13] all phases passed in {time.perf_counter() - t_all:.1f} s on {smi} "
         f"(the 2-shard build took {paired_build_s:.1f} s)")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

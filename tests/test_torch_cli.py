@@ -1,6 +1,9 @@
 """bwtpu_torch's CLI against the repository's cli.py: byte-equal SAM.
 Both run in-process; the port on the CPU (--device cpu)."""
 
+import contextlib
+import io
+import json
 import os
 import sys
 
@@ -105,7 +108,12 @@ def test_resume_and_uncovered_options(tmp_path):
     # --tiered, --esc-factor and --autotune-caps (tests/test_torch_tiered.py),
     # --paired, --rescore and simulate (tests/test_torch_paired.py) are
     # covered now; what is left names its ROADMAP slice
-    for argv, slice_no in ((base + ["--profile", str(tmp_path / "prof")], 9),
-                           (["bench"], 9), (["scaling", "--shards", "2"], 8)):
-        with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
+    for argv in (base + ["--profile", str(tmp_path / "prof")], ["bench"]):
+        with pytest.raises(NotImplementedError, match="slice 9"):
             tcli.main(argv)
+    # scaling is ported (slice 8): one process is a gloo world of one
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        tcli.main(["scaling", "--shards", "1", "--genome-bp", "20000", "--n-reads", "256",
+                   "--device", "cpu"])
+    line = json.loads(printed.getvalue().strip().splitlines()[-1])
+    assert line["event"] == "scaling" and [r["n_data"] for r in line["rows"]] == [1]

@@ -536,3 +536,69 @@ def test_three_shard_engine_on_the_card_equals_the_cpu(cuda, k, tiered):
         assert np.array_equal(getattr(fg, name), getattr(fc, name)), name
     assert (fg.truncated is None) == (fc.truncated is None)
     assert lg == lc and sg == sc and len(fg.read_idx) > (200 if k == 0 else 1000)
+
+
+def _dist_rank(rank: int, world: int, tmp: str, backend: str, S: int, reads: list) -> None:
+    """One rank of the DistEngine card tests: its block of `reads` at
+    k = 0 and 2 on cuda:0, hits and kernel launches to rank<r>.pkl."""
+    import datetime
+    import os
+    import pickle
+
+    import torch.distributed as dist
+
+    from bwtpu_torch.dist import DistEngine
+    from bwtpu_torch.index import build_sharded_index
+    from bwtpu_torch.io import Read
+    from bwtpu_torch.kernels.verify2 import verify_nm
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        shards, manifest = build_sharded_index(GENOME, S, config=EngineConfig(sa_rate=8),
+                                               overlap=128)
+        eng = DistEngine(shards, manifest, device="cuda:0")
+        b = -(-len(reads) // world)
+        mine = [Read(rid, seq) for rid, seq in reads[rank * b:(rank + 1) * b]]
+        out = {"transport": eng.transport}
+        for k in (0, 2):
+            fns = (locate_walk, verify_nm, search2.search_chain2)
+            before = [f.launches for f in fns]
+            out[k] = [[(h.nm, h.strand, h.pos) for h in hs] for hs in eng.align_batch(mine, k)]
+            out[f"launches{k}"] = [f.launches - n for f, n in zip(fns, before)]
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,world,S", [("nccl", 1, 1), ("gloo", 2, 2)],
+                         ids=["nccl-1rank-1shard", "gloo-2ranks-2shards-one-card"])
+def test_dist_engine_on_the_card_equals_engine(cuda, tmp_path, backend, world, S):
+    """DistEngine's ring on the card (NCCL at world 1; two gloo ranks on
+    cuda:0, their hops through host memory) against the single-device
+    Engine over the same shards and reads, at k = 0 and 2; each rank
+    launched locate_walk, verify_nm and search_chain2."""
+    import pickle
+
+    from bwtpu_torch.engine import Engine
+    from bwtpu_torch.index import build_sharded_index
+    from test_torch_dist import run_ranks
+
+    reads, _ = simulate_reads(GENOME, 3000, read_len=L, max_mismatches=2, n_frac=0.01, seed=33)
+    run_ranks(_dist_rank, world, (world, str(tmp_path), backend, S,
+                                  [(r.rid, r.seq) for r in reads]), timeout=300)
+    ranks = []
+    for r in range(world):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    shards, _ = build_sharded_index(GENOME, S, config=EngineConfig(sa_rate=8), overlap=128)
+    eng = Engine(shards, device="cuda")
+    for k in (0, 2):
+        want = [[(h.nm, h.strand, h.pos) for h in hs] for hs in eng.align_batch(reads, k)]
+        assert [x for r in ranks for x in r[k]] == want
+        assert all(min(r[f"launches{k}"]) > 0 for r in ranks), [r[f"launches{k}"] for r in ranks]
+    assert {r["transport"] for r in ranks} == {
+        "nccl" if backend == "nccl" else "gloo via host memory"}

@@ -28,6 +28,7 @@ def test_port_imports_without_jax_or_nvcc():
     code = (
         "import sys\n"
         "import bwtpu_torch, bwtpu_torch.engine, bwtpu_torch.cli, bwtpu_torch.sw\n"
+        "import bwtpu_torch.dist, bwtpu_torch.multihost\n"
         "from bwtpu_torch.kernels import (common, compact, gather, locate, prep,\n"
         "    search, search2, searchk, verify, verify2, _build)\n"
         "from bwtpu_torch import sais\n"
