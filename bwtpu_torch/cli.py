@@ -19,6 +19,8 @@ Subcommands:
                to `cli.py simulate`'s files for the same arguments
   scaling      the ring's reads/s over 1, 2, 4, ... data groups of
                --shards ranks (bwtpu_torch.dist), under torchrun
+  bench        bench.py's benchmark on the port (bwtpu_torch.bench; its
+               options: --smoke, --cpu, --batch, --nbatches): one JSON line
 
 Examples:
   python -m bwtpu_torch.cli build-index ref.fa idx/ --sa-rate 8
@@ -29,6 +31,8 @@ Examples:
   python -m bwtpu_torch.cli align idx/ reads.fa -o out.sam -k 2 --rescore
   python -m bwtpu_torch.cli simulate --scale ecoli -o data/sim --pairs 1000
   torchrun --nproc-per-node 4 -m bwtpu_torch.cli scaling --shards 2
+  python -m bwtpu_torch.cli align idx/ reads.fq -o out.sam -k 2 --profile prof/
+  python -m bwtpu_torch.cli bench --smoke --cpu
 
 The device defaults to cuda and never falls back: without a card the
 align command fails (pass --device cpu for the plain-torch versions).
@@ -37,6 +41,7 @@ align command fails (pass --device cpu for the plain-torch versions).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
@@ -353,8 +358,6 @@ def cmd_align(args) -> dict:
     from bwtpu_torch.readblock import read_fastq_stream, read_fastq_stream_ragged
     from bwtpu_torch.engine import Engine
 
-    if args.profile:
-        _not_ported("align --profile", 9)(args)
     shards, manifest = load_index(args.index)
     if args.esc_factor is not None:
         shards = [dataclasses.replace(s, config=s.config.replace(esc_factor=args.esc_factor))
@@ -376,7 +379,7 @@ def cmd_align(args) -> dict:
     where = (manifest, args.out, k)
     inserts = (args.min_insert, args.max_insert)
 
-    if not args.rescore:  # --rescore runs on the Read lists
+    if not args.rescore and not args.profile:  # both run on the Read lists
         res = read_fastq_stream(args.reads, bs, start=start_batch)
         if args.paired:
             res2 = read_fastq_stream(args.paired, bs, start=start_batch)
@@ -396,15 +399,30 @@ def cmd_align(args) -> dict:
                 total, t_start = _align_ragged_block_stream(
                     engine, resr[2], *where, args.tiered, start_batch, cursor_path, mode)
                 return _print_summary(engine, total, t_start)
-    if args.paired:
-        total, t_start = _align_paired_read_lists(
-            engine, read_reads(args.reads), read_reads(args.paired), *where, bs,
-            start_batch, cursor_path, mode, *inserts)
-    else:
-        total, t_start = _align_read_lists(
-            engine, read_reads(args.reads), *where, bs, start_batch, cursor_path, mode,
-            rescore=args.rescore)
+    with _profiler(args.profile, engine.device):
+        if args.paired:
+            total, t_start = _align_paired_read_lists(
+                engine, read_reads(args.reads), read_reads(args.paired), *where, bs,
+                start_batch, cursor_path, mode, *inserts)
+        else:
+            total, t_start = _align_read_lists(
+                engine, read_reads(args.reads), *where, bs, start_batch, cursor_path, mode,
+                rescore=args.rescore)
     return _print_summary(engine, total, t_start)
+
+
+def _profiler(trace_dir, device):
+    """align --profile: a torch.profiler window (CPU activity, and CUDA
+    activity on a card) whose Chrome trace is written into trace_dir,
+    created if needed, as <host>_<pid>.<ms>.pt.trace.json; without a
+    directory, no profiler."""
+    if not trace_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    os.makedirs(trace_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    return profile(activities=acts, on_trace_ready=tensorboard_trace_handler(trace_dir))
 
 
 def _autotune(engine, reads_path, k, bs) -> None:
@@ -513,12 +531,6 @@ def cmd_scaling(args):
             dist.destroy_process_group()
 
 
-def _not_ported(what: str, slice_no: int):
-    def refuse(args):
-        raise NotImplementedError(f"{what} is ROADMAP slice {slice_no} of the port")
-    return refuse
-
-
 def _print_summary(engine, total, t_start) -> dict:
     dt = time.time() - t_start
     st = engine.stats
@@ -598,7 +610,9 @@ def main(argv=None):
     a.add_argument("--rescore", action="store_true",
                    help="banded Smith-Waterman rescore of each primary hit; adds "
                         "an AS:i tag (single-end, Read-list path)")
-    a.add_argument("--profile", help="not covered yet (ROADMAP slice 9)")
+    a.add_argument("--profile", metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the alignment loop "
+                        "into DIR (takes the Read-list route, as cli.py does)")
     a.set_defaults(fn=cmd_align)
 
     sm = sub.add_parser("simulate", help="generate test genome + reads")
@@ -622,11 +636,15 @@ def main(argv=None):
                     help="cuda (cuda:LOCAL_RANK, NCCL) or cpu (gloo)")
     sc.set_defaults(fn=cmd_scaling)
 
-    bn = sub.add_parser("bench", help="not covered yet (ROADMAP slice 9)")
-    bn.set_defaults(fn=_not_ported("the bench subcommand", 9))
+    sub.add_parser("bench", add_help=False,  # its options: bwtpu_torch.bench
+                   help="bench.py's benchmark on the port (bwtpu_torch.bench)")
 
     args, rest = p.parse_known_args(argv)
-    if rest and args.cmd != "bench":  # its options refuse with it
+    if args.cmd == "bench":  # bwtpu_torch.bench parses its own options
+        from bwtpu_torch import bench
+
+        return bench.main(rest)
+    if rest:
         p.error(f"unrecognized arguments: {' '.join(rest)}")
     return args.fn(args)
 

@@ -332,6 +332,17 @@ def device_prep_packed(read_words, amb_bits, L: int):
     return rw2, ab2, lens2, lm.unsqueeze(0).expand(2 * B, W)
 
 
+def pack_reads_for_bench(reads):
+    """Pack a uniform-length read list to (read_words, amb_bits)."""
+    B = len(reads)
+    L = len(reads[0].seq)
+    c, m = dna.encode_with_mask("".join(r.seq for r in reads))
+    codes = c.reshape(B, L).astype(np.int32)
+    amb = m.reshape(B, L).astype(np.int32)
+    rw, ab, _ = pack_reads(codes, amb, np.full(B, L, np.int32))
+    return rw, ab
+
+
 # ---------------------------------------------------------------------------
 # Device pipelines (plain functions of one shard + one batch)
 # ---------------------------------------------------------------------------

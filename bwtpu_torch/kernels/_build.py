@@ -30,6 +30,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+SOURCES = ("locate", "verify", "search1", "search2", "gather", "sw")  # csrc/<name>.cu
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # per source: {"seconds": build time (0.0 when cached), "ptxas": nvcc's
@@ -192,3 +194,30 @@ def count_launch(wrapper) -> None:
     of the CLI launches too, hence the lock)."""
     with _count_lock:
         wrapper.launches += 1
+
+
+def _wrappers() -> dict:
+    """{kernel name: wrapper} of every kernel (imported at call time: the
+    wrapper modules import this one)."""
+    from bwtpu_torch.kernels.gather import row_gather_sum
+    from bwtpu_torch.kernels.locate import locate_walk
+    from bwtpu_torch.kernels.search2 import search_chain1, search_chain2
+    from bwtpu_torch.kernels.verify2 import verify_locv, verify_nm
+    from bwtpu_torch.sw import sw_score_batch
+
+    return {"sw_band": sw_score_batch, "locate_walk": locate_walk, "verify_nm": verify_nm,
+            "search_chain1": search_chain1, "search_chain2": search_chain2,
+            "verify_locv": verify_locv, "row_gather_sum": row_gather_sum}
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's `launches` counter to 0."""
+    with _count_lock:
+        for fn in _wrappers().values():
+            fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches since the last reset_launches}."""
+    with _count_lock:
+        return {name: fn.launches for name, fn in _wrappers().items()}

@@ -52,7 +52,7 @@ def search_early_stop_packed(lattice, latk, latk_inv, C, dollar_row: int,
                              kmer_table, words, amb_bits, off: int, L: int,
                              d: int, step: int, stop_width: int,
                              min_trips: int = 0, cap_scale: int = 1,
-                             wide_steps: int = 0):
+                             wide_steps: int = 0, with_stats: bool = False):
     """Backward search of the pattern bases [off, off+L) of each packed
     row that stops each lane once ep - sp <= stop_width.
 
@@ -61,6 +61,10 @@ def search_early_stop_packed(lattice, latk, latk_inv, C, dollar_row: int,
     on the compacted two-gather chain with remaining == 0; overflow flags
     (int32[B]) the lanes past that finisher's capacity. Index ranges of
     the gathers: key < 4^d, and sp // R <= n // R for active lanes.
+
+    with_stats: also return the multi-step trips taken (int) and the
+    number of lanes handed to the finisher (int32 0-dim), as bwtpu's
+    (sp, ep, rem, overflow, trips, n_unf); the bench's roofline reads them.
     """
     assert d >= 1 and L >= d and step in (3, 4), (L, d, step)
     assert 0 <= wide_steps <= L - d, (wide_steps, L, d)
@@ -103,9 +107,9 @@ def search_early_stop_packed(lattice, latk, latk_inv, C, dollar_row: int,
     T = chain // step
 
     cap = min(B, max(256, B // 64) * cap_scale)
+    t = 0
     if T > 0:
         t_all, a_all = prep.smer_codes_packed(words, amb_bits, off + p, T, step)
-        t = 0
         while t < T:
             if t >= min_trips and int((~stopped & ~strag).sum()) <= cap:
                 break
@@ -133,4 +137,6 @@ def search_early_stop_packed(lattice, latk, latk_inv, C, dollar_row: int,
         sp0, ep0, sp, ep, unfinished, d, cap=cap,
     )
     rem = torch.where(unfinished, 0, rem)
+    if with_stats:
+        return sp, ep, rem, overflow, t, unfinished.sum(dtype=torch.int32)
     return sp, ep, rem, overflow

@@ -106,6 +106,7 @@ def _run(args, dev):
     from bwtpu_torch.dist import DistEngine
     from bwtpu_torch.index import load_index
     from bwtpu_torch.io import Read, read_reads
+    from bwtpu_torch.kernels._build import launch_counts
     from bwtpu_torch.sam import emit_sam, pair_and_emit_sam, sam_header
 
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -294,6 +295,7 @@ def _run(args, dev):
         "paired": paired, "rounds": rounds, "dispatches": dispatches,
         "packed_rounds": rounds,  # every round runs the packed ring
         "heals": eng.heals, "device": str(dev), "transport": eng.transport,
+        "launches": launch_counts(),  # this process's, since the last reset
     }
     print(json.dumps(summary), file=sys.stderr)
     return summary

@@ -83,7 +83,15 @@ Phases, in order; any failure raises and the exit code is not 0:
      same reads (which phases 5 and 10 hold against truth and brute
      force); locate_walk, verify_nm and search_chain2 launched in every
      rank and run; reads/s, wall, heals and transport per rank;
- 13. the result lines.
+ 13. the bench: `python -m bwtpu_torch.cli bench` at its defaults (bench.py's
+     configuration at full size) in a subprocess: rc 0, the JSON line with
+     every key of bench.py's, platform cuda, every rate > 0, every overflow
+     0, no null roofline or probe field, no guarded section failed;
+     verify_locv, search_chain2 and row_gather_sum launched in its sections,
+     locate_walk and verify_nm in every probe rank; then `align --profile`
+     on phase 5's FASTQ at k = 2: SAM byte-equal to phase 5's, and
+     locate_walk, verify_nm and search_chain2 named as kernels in the trace;
+ 14. the result lines.
 
 The genome is random at E. coli size (4,641,652 bp) with one dispersed
 repeat family (300 copies of a 12 bp motif), so that some 11-mer start
@@ -195,9 +203,8 @@ def phase_build():
     say(f"  native host library loaded: {os.path.relpath(sais.build_info['so'])} "
         f"(built in {sais.build_info['seconds']:.2f} s)")
     t0 = time.perf_counter()
-    names = ("locate", "verify", "search1", "search2", "gather", "sw")
-    _build.build_all(names)
-    for name in names:
+    _build.build_all(_build.SOURCES)
+    for name in _build.SOURCES:
         info = _build.build_info[name]
         regs = [int(w) for line in info["ptxas"].splitlines() if "Used" in line
                 for w in line.split("Used")[1].split()[:1]]
@@ -1788,6 +1795,136 @@ def chain1_l2(rec: dict, bytes_per_ms: float) -> None:
             f"{rec['bound_ms' if ms_key == 'ms' else 'seeds_bound_ms']:.5f} ms")
 
 
+BENCH_TIMEOUT = 600  # seconds for the full-size bench subprocess (~230 s on an H100)
+# the kernel function names of the three wrappers align --profile runs
+TRACE_KERNELS = {"locate_walk": "locate_walk_kernel", "verify_nm": "verify_nm",
+                 "search_chain2": "chain2_"}
+
+
+def bench_py_keys(root: str) -> tuple[set, set]:
+    """(top-level keys, "extras" keys) of the root bench.py's final
+    json.dumps dict, read from its source with ast (nothing is imported):
+    the literal keys plus the `timings[...]` keys that `**timings` spreads
+    into extras."""
+    import ast
+
+    with open(os.path.join(root, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    line = [n for n in ast.walk(main) if isinstance(n, ast.Call)
+            and getattr(n.func, "attr", None) == "dumps" and n.args
+            and isinstance(n.args[0], ast.Dict)][-1].args[0]
+    names = [k.value for k in line.keys]
+    extras = line.values[names.index("extras")]
+    keys = {k.value for k in extras.keys if k is not None}
+    keys |= {n.targets[0].slice.value for n in ast.walk(main)
+             if isinstance(n, ast.Assign) and isinstance(n.targets[0], ast.Subscript)
+             and getattr(n.targets[0].value, "id", None) == "timings"}
+    return set(names), keys
+
+
+def run_bench(root: str, tmp: str) -> tuple[dict, list, str]:
+    """`python -m bwtpu_torch.cli bench` at its defaults in a session of
+    its own (killed whole at the timeout, the probe's ranks included).
+    Returns (its JSON line, its stderr lines, its stdout)."""
+    import signal
+
+    err_path = os.path.join(tmp, "bench.err")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "bwtpu_torch.cli", "bench"], cwd=root,
+                                stdout=subprocess.PIPE, stderr=err, text=True,
+                                start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=BENCH_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    with open(err_path) as f:
+        lines = f.read().splitlines()
+    if proc.returncode != 0:
+        say("\n".join(lines[-80:]))
+    require(proc.returncode == 0, f"bench exited with {proc.returncode}")
+    return json.loads(out.strip().splitlines()[-1]), lines, out
+
+
+def phase_bench(tmp: str, smi: str, root: str, idx5: str, p5: dict) -> tuple[dict, dict]:
+    """13: the bench at full size, then align --profile on phase 5's
+    FASTQ at k = 2. Returns the launches of both paths."""
+    import torch
+
+    torch.cuda.empty_cache()  # the bench runs in a process of its own
+    say("[13] the bench: python -m bwtpu_torch.cli bench (bench.py's configuration: "
+        "4,641,652 bp, sa_rate 1 with the locv table, batches of 524,288 reads)")
+    t0 = time.perf_counter()
+    line, err, _ = run_bench(root, tmp)
+    wall = time.perf_counter() - t0
+    for ln in err:
+        if ln.startswith(("# section", "# launches")):
+            say(f"  {ln}")
+    say(f"  bench line ({smi}): {json.dumps(line)}")
+    failed = [ln for ln in err if ln.startswith("# ") and ln.endswith(" failed:")]
+    require(not failed, f"bench: a guarded section failed: {failed}")
+    top, extras = bench_py_keys(root)
+    ex = line["extras"]
+    require(set(line) == top and set(ex) == extras,
+            f"bench: keys differ from bench.py's: {sorted(set(line) ^ top)} "
+            f"{sorted(set(ex) ^ extras)}")
+    require(ex["platform"] == "cuda" and ex["backend"] == "cuda", f"bench ran on {ex['platform']}")
+    rates = ["k2_reads_per_s", "k2_tiered_reads_per_s"] + [
+        k for k in ex if k.startswith("e2e_") and k.endswith("_reads_per_s")]
+    require(line["value"] > 0 and all(ex[k] > 0 for k in rates),
+            f"bench: a rate is not positive: {[(k, ex[k]) for k in rates]}")
+    zero = ["exact_overflow", "k2_overflow", "k2_tiered_overflow"] + [
+        k for k in ex if k.startswith("e2e_") and k.endswith("_overflows")]
+    require(all(ex[k] == 0 for k in zero), f"bench: overflows {[(k, ex[k]) for k in zero]}")
+    set_ = [k for k in ex if k.startswith(("sol_", "k2_sol_", "ns_per_row_", "multihost_",
+                                            "scaling_eff_"))]
+    require(all(ex[k] is not None for k in set_),
+            f"bench: null fields {[k for k in set_ if ex[k] is None]}")
+    # launches: every section of the bench process, and each probe rank's
+    total, ranks = {}, []
+    for ln in err:
+        if ln.startswith("# launches "):
+            _, _, name, counts = ln.split(" ", 3)
+            counts = json.loads(counts)
+            if name.startswith("multihost_"):
+                ranks.append((name, counts))
+            for n, c in counts.items():
+                total[n] = total.get(n, 0) + c
+    require(all(total[n] > 0 for n in ("verify_locv", "search_chain2", "row_gather_sum")),
+            f"bench: launches {total}")
+    require(len(ranks) == 6 and all(c["locate_walk"] > 0 and c["verify_nm"] > 0
+                                    for _, c in ranks), f"bench: probe ranks launched {ranks}")
+    say(f"  bench: {wall:.1f} s; launches (sections and probe ranks) {total}; {smi}")
+
+    # align --profile: the Read-list route inside a torch.profiler window
+    prof, sam = os.path.join(tmp, "prof"), os.path.join(tmp, "profiled.sam")
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = run_cli(["align", idx5, p5["fq"], "-o", sam, "-k", "2", "--batch-size",
+                       str(BATCH), "--device", "cuda", "--profile", prof])
+    wall = time.perf_counter() - t0
+    plaunches = read_launches()
+    with open(sam, "rb") as f:
+        require(f.read() == p5["sam"][2], "align --profile: SAM differs from phase 5's k = 2")
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    require(len(traces) == 1, f"align --profile wrote {traces}")
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    seen = {n: sum(1 for e in kernels if fn in e.get("name", ""))
+            for n, fn in TRACE_KERNELS.items()}
+    require(all(seen.values()), f"align --profile: trace kernels {seen}")
+    busy = sum(e.get("dur", 0) for e in kernels) / 1e6
+    say(f"  align --profile -k 2: SAM byte-equal to phase 5's; trace "
+        f"{os.path.getsize(os.path.join(prof, traces[0])) / 1e6:.1f} MB, {len(events)} events, "
+        f"{len(kernels)} kernels ({busy:.3f} s of kernel time) of which {seen}; wall "
+        f"{wall:.1f} s ({summary['reads_per_s']} reads/s under the profiler); launches "
+        f"{plaunches}; {smi}")
+    return total, plaunches
+
+
 KERNELS = {  # name: (source, TPU kernel (or jnp code) it replaces)
     "sw_band": ("bwtpu_torch/csrc/sw.cu", "bwtpu/sw.py:28"),
     "locate_walk": ("bwtpu_torch/csrc/locate.cu", "bwtpu/kernels/pallas_step.py:256"),
@@ -1800,25 +1937,16 @@ KERNELS = {  # name: (source, TPU kernel (or jnp code) it replaces)
 }
 
 
-def _wrappers():
-    from bwtpu_torch.kernels.gather import row_gather_sum
-    from bwtpu_torch.kernels.locate import locate_walk
-    from bwtpu_torch.kernels.search2 import search_chain1, search_chain2
-    from bwtpu_torch.kernels.verify2 import verify_locv, verify_nm
-    from bwtpu_torch.sw import sw_score_batch
-
-    return {"sw_band": sw_score_batch, "locate_walk": locate_walk, "verify_nm": verify_nm,
-            "search_chain1": search_chain1, "search_chain2": search_chain2,
-            "verify_locv": verify_locv, "row_gather_sum": row_gather_sum}
-
-
 def reset_launches() -> None:
-    for fn in _wrappers().values():
-        fn.launches = 0
+    from bwtpu_torch.kernels import _build
+
+    _build.reset_launches()
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    from bwtpu_torch.kernels import _build
+
+    return _build.launch_counts()
 
 
 def brute_force_sample(g_t, reads, sample, k: int) -> set:
@@ -1916,13 +2044,16 @@ def main() -> int:
         paired_launches, paired_build_s, p10 = phase_paired(tmp)
         wide_launches = phase_wide(tmp)
         ring_launches = phase_ring(tmp, smi, idx_dir, p5["fq"], reads, p10)
+        bench_launches, profile_launches = phase_bench(tmp, smi, root, idx_dir, p5)
     paths = {"slice 1's path": launches, "the Read-list path": list_launches,
              "the sa_rate 1 path": locv_launches, "the --rescore path": rescore_launches,
              "paired-end on 2 shards": paired_launches, "wide reads": wide_launches,
-             "the ring (every rank)": ring_launches, "the gather A/B": ab_launches}
+             "the ring (every rank)": ring_launches, "the gather A/B": ab_launches,
+             "the bench (sections and probe ranks)": bench_launches,
+             "align --profile": profile_launches}
     for what, counts in paths.items():
         say(f"  launches on {what}: {counts}")
-    say(f"[13] all phases passed in {time.perf_counter() - t_all:.1f} s on {smi} "
+    say(f"[14] all phases passed in {time.perf_counter() - t_all:.1f} s on {smi} "
         f"(the 2-shard build took {paired_build_s:.1f} s)")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -107,10 +107,20 @@ def test_resume_and_uncovered_options(tmp_path):
     assert out.read_bytes() == full
     # --tiered, --esc-factor and --autotune-caps (tests/test_torch_tiered.py),
     # --paired, --rescore and simulate (tests/test_torch_paired.py) are
-    # covered now; what is left names its ROADMAP slice
-    for argv in (base + ["--profile", str(tmp_path / "prof")], ["bench"]):
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            tcli.main(argv)
+    # covered elsewhere. --profile DIR (slice 9) takes the Read-list route
+    # inside a torch.profiler window: a Chrome trace in DIR, created if
+    # needed, and the SAM bytes of the run without it
+    prof = tmp_path / "prof" / "run1"
+    tcli.main(base + ["--profile", str(prof)])
+    assert out.read_bytes() == full
+    traces = list(prof.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    # bench (slice 9) parses its own options: an unknown one fails in argparse
+    with pytest.raises(SystemExit) as e:
+        tcli.main(["bench", "--no-such-option"])
+    assert e.value.code == 2
     # scaling is ported (slice 8): one process is a gloo world of one
     with contextlib.redirect_stdout(io.StringIO()) as printed:
         tcli.main(["scaling", "--shards", "1", "--genome-bp", "20000", "--n-reads", "256",

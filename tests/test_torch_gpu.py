@@ -500,6 +500,28 @@ def test_row_gather_sum_kernel_blocks(cuda, n_idx, G, inflight):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("Wr", [16, 128])
+def test_bench_calibration_on_the_card(cuda, Wr):
+    """The bench's roofline calibration: a positive ns per row on the
+    card, and its gather sum (row_gather_sum's kernel) equal to the plain
+    version's on the same index stream, at a locv row's width and at the
+    multi-step lattice's."""
+    from bwtpu_torch import bench
+    from bwtpu_torch.kernels.gather import row_gather_sum_plain
+
+    rng = np.random.default_rng(Wr)
+    table = _t(rng.integers(-2**31, 2**31, size=(300000, Wr), dtype=np.int64).astype(np.int32),
+               cuda)
+    assert bench.calibrate_ns_per_row(table, 1 << 18) > 0
+    for seed in (0, 1, 5):
+        idx = bench.gather_index_stream(1 << 18, seed, table.shape[0], cuda)
+        got = bench.gather_sum(table, idx)
+        want = row_gather_sum_plain(table, idx, bench.GATHER_G)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
 def test_sw_band_refuses_a_band_without_an_instance(cuda):
     from bwtpu_torch.sw import sw_score_batch
 

@@ -267,3 +267,18 @@ def test_build_index_artifact_equal_to_cli_py(tmp_path, flags):
         assert sorted(zg.files) == sorted(zw.files)
         for name in zw.files:
             _assert_same(zg[name], zw[name], f"shard{i}.{name}")
+
+
+@pytest.mark.parametrize("k", [0, 2])
+def test_golden_align_read_equal(k):
+    """The port's GoldenFMIndex (the bench's CPU reference) gives bwtpu's
+    hit lists on sampled reads with N bases, on a genome with N runs."""
+    genome = _genome(4000, seed=61 + k)
+    reads, _ = jsimulate.simulate_reads(genome, 30, read_len=40, max_mismatches=2,
+                                        n_frac=0.01, seed=62 + k)
+    reads += [jio.Read(rid="n", seq="N" * 40), jio.Read(rid="rep", seq=genome[100:140])]
+    got_idx, want_idx = tgolden.GoldenFMIndex(genome), jgolden.GoldenFMIndex(genome)
+    for r in reads:
+        got = [(h.nm, h.strand, h.pos) for h in got_idx.align_read(r.seq, k=k)]
+        want = [(h.nm, h.strand, h.pos) for h in want_idx.align_read(r.seq, k=k)]
+        assert got == want, r.rid

@@ -28,7 +28,7 @@ def test_port_imports_without_jax_or_nvcc():
     code = (
         "import sys\n"
         "import bwtpu_torch, bwtpu_torch.engine, bwtpu_torch.cli, bwtpu_torch.sw\n"
-        "import bwtpu_torch.dist, bwtpu_torch.multihost\n"
+        "import bwtpu_torch.dist, bwtpu_torch.multihost, bwtpu_torch.bench\n"
         "from bwtpu_torch.kernels import (common, compact, gather, locate, prep,\n"
         "    search, search2, searchk, verify, verify2, _build)\n"
         "from bwtpu_torch import sais\n"
@@ -69,8 +69,9 @@ def test_no_module_of_the_jax_package_is_imported():
 
 
 # `import bwtpu`, `from bwtpu import x`, `from bwtpu.x import y`,
-# `import cli`; `bwtpu_torch` does not match (word boundary, no `_`)
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(bwtpu|cli)(\s|\.|,|$)")
+# `import cli`, `import bench` (the root bench.py is part of the JAX
+# package); `bwtpu_torch` does not match (word boundary, no `_`)
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(bwtpu|cli|bench)(\s|\.|,|$)")
 
 
 @pytest.mark.parametrize("path", _port_files())
@@ -83,8 +84,10 @@ def test_source_names_no_module_of_the_jax_package(path):
 
 def test_the_scan_would_catch_an_import():
     for line in ("import bwtpu", "from bwtpu import dna", "    from bwtpu.io import Read",
-                 "import cli", "import bwtpu.sais as s"):
+                 "import cli", "import bwtpu.sais as s", "import bench",
+                 "    from bench import gather_model", "import bench as b"):
         assert _FORBIDDEN.match(line), line
     for line in ("from bwtpu_torch import dna", "import bwtpu_torch.cli",
-                 "from bwtpu_torch import cli as tcli", "# import bwtpu is not done"):
+                 "from bwtpu_torch import cli as tcli", "# import bwtpu is not done",
+                 "from bwtpu_torch import bench", "import benchmark"):
         assert not _FORBIDDEN.match(line), line

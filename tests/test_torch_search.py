@@ -149,22 +149,31 @@ def genomes():
     ("tandem", 1, 0, 1, 0, 60),
     ("tandem", 0, 2, 2, 40, 20),
     ("tandem", 1, 0, 1, 0, 20),
+    ("random", 2, 0, 1, 20, 40),
+    ("tandem", 3, 1, 1, 0, 60),
 ])
 def test_search_early_stop_packed_matches_bwtpu(genomes, kind, min_trips, wide_steps,
                                                 cap_scale, off, L):
+    """Every lane's (sp, ep, rem, overflow), and with_stats=True's trips
+    and finisher lane count (the bench's roofline reads them)."""
     idx, shard, rw, ab = genomes[kind]
     d = max(idx.kmer_tables)  # auto depth of a 12 kbp genome: 6
     jargs = (shard.lattice, shard.latk, shard.latk_inv, shard.C, shard.dollar_row,
              shard.kmer_tables[d], jnp.asarray(rw), jnp.asarray(ab))
     stop = 16
-    want = j_search(*jargs, off, L, d, 3, stop, min_trips, cap_scale=cap_scale,
-                    wide_steps=wide_steps)
+    want = j_search(*jargs, off, L, d, 3, stop, min_trips, with_stats=True,
+                    cap_scale=cap_scale, wide_steps=wide_steps)
     targs = (_t(idx.search_lattice), _t(idx.occk_lattice), _t(idx.occk_invalid),
              _t(idx.C), idx.dollar_row, _t(idx.kmer_tables[d]), _t(rw), _t(ab))
     got = t_search(*targs, off, L, d, 3, stop, min_trips, cap_scale=cap_scale,
                    wide_steps=wide_steps)
     for name, a, b in zip(("sp", "ep", "rem", "overflow"), got, want):
         _eq(a, b, f"{kind} lane {name}")
+    stats = t_search(*targs, off, L, d, 3, stop, min_trips, cap_scale=cap_scale,
+                     wide_steps=wide_steps, with_stats=True)
+    for a, b in zip(stats, got):
+        _eq(a, b)
+    assert int(stats[4]) == int(want[4]) and int(stats[5]) == int(want[5]), (stats[4:], want[4:])
     sp, ep, rem, over = (x.numpy() for x in got)
     if kind == "tandem":
         # the finisher ran: still-wide lanes came back exact (rem == 0)
