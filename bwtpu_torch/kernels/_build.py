@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-SOURCES = ("locate", "verify", "search1", "search2", "gather", "sw")  # csrc/<name>.cu
+SOURCES = ("locate", "verify", "search1", "search2", "searchk", "gather", "sw")  # csrc/*.cu
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -202,12 +202,14 @@ def _wrappers() -> dict:
     from bwtpu_torch.kernels.gather import row_gather_sum
     from bwtpu_torch.kernels.locate import locate_walk
     from bwtpu_torch.kernels.search2 import search_chain1, search_chain2
+    from bwtpu_torch.kernels.searchk import search_multistep
     from bwtpu_torch.kernels.verify2 import verify_locv, verify_nm
     from bwtpu_torch.sw import sw_score_batch
 
     return {"sw_band": sw_score_batch, "locate_walk": locate_walk, "verify_nm": verify_nm,
             "search_chain1": search_chain1, "search_chain2": search_chain2,
-            "verify_locv": verify_locv, "row_gather_sum": row_gather_sum}
+            "search_multistep": search_multistep, "verify_locv": verify_locv,
+            "row_gather_sum": row_gather_sum}
 
 
 def reset_launches() -> None:

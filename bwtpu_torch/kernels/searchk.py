@@ -1,19 +1,34 @@
 """Multi-step early-stop backward search on torch tensors (counterpart of
 bwtpu/kernels/searchk.py::occk_pair_from_record, search_early_stop_packed).
 
-Plain torch in this slice (a hand-written kernel is ROADMAP queue B2).
-Per-lane (sp, ep, rem, overflow) equal the reference's, so the
-whole-batch exit test of its while_loop is kept as written:
-`(t < T) & ((n_pool > cap) | (t < min_trips))` — one `.item()` sync
-per trip once min_trips is past.
+`search_early_stop_packed` runs `search_multistep` (the prologue, the
+wide phase and the multi-step trips of every lane, then the whole-batch
+exit) and the straggler finisher after it. `search_multistep` launches
+the hand-written kernel csrc/searchk.cu on CUDA tensors and runs
+`search_multistep_plain` on CPU tensors; anything else raises, and
+nothing falls back. The kernel path never syncs with the host (ROADMAP
+B.1).
+
+The reference's while_loop tests `(t < T) & ((n_pool > cap) | (t <
+min_trips))` before every trip, so the whole batch leaves at one trip.
+Here every lane runs its trips until it leaves the pool (`leave`, the
+trip count at which it stopped or straggled; T if never), and the exit
+trip comes afterwards from the histogram of `leave` (`exit_trip`): the
+pool at trip t is #{leave > t}. A lane with leave <= t* ends as the
+reference leaves it; a lane with leave > t* was in the reference's pool
+at its exit, so it is unfinished there and the finisher restarts it
+from (sp0, ep0) or forces it empty: its own later state is never read.
+So one pass gives the reference's outputs, trips and n_unf included.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from bwtpu_torch.index import OCCK_BLOCK
-from bwtpu_torch.kernels import common, prep
+from bwtpu_torch.index import OCCK_BLOCK, OCCK_WIDTH
+from bwtpu_torch.kernels import _build, common, prep
 from bwtpu_torch.kernels.search2 import _fixup_stragglers_packed
 
 
@@ -48,26 +63,35 @@ def occk_pair_from_record(rec, t, sp, ep, inv, A: int, R: int):
     return fold + cnt_sp, fold + cnt_ep, mep > R
 
 
-def search_early_stop_packed(lattice, latk, latk_inv, C, dollar_row: int,
-                             kmer_table, words, amb_bits, off: int, L: int,
-                             d: int, step: int, stop_width: int,
-                             min_trips: int = 0, cap_scale: int = 1,
-                             wide_steps: int = 0, with_stats: bool = False):
-    """Backward search of the pattern bases [off, off+L) of each packed
-    row that stops each lane once ep - sp <= stop_width.
-
-    Returns (sp, ep, remaining, overflow): the interval matches the
-    pattern SUFFIX P[remaining:]; lanes that stay wide or straggle finish
-    on the compacted two-gather chain with remaining == 0; overflow flags
-    (int32[B]) the lanes past that finisher's capacity. Index ranges of
-    the gathers: key < 4^d, and sp // R <= n // R for active lanes.
-
-    with_stats: also return the multi-step trips taken (int) and the
-    number of lanes handed to the finisher (int32 0-dim), as bwtpu's
-    (sp, ep, rem, overflow, trips, n_unf); the bench's roofline reads them.
-    """
+def _shape(L: int, d: int, step: int, wide_steps: int, B: int, cap_scale: int):
+    """(T, p, cap): the multi-step trips, the bases left over below them,
+    and the finisher's capacity."""
     assert d >= 1 and L >= d and step in (3, 4), (L, d, step)
     assert 0 <= wide_steps <= L - d, (wide_steps, L, d)
+    chain = L - d - wide_steps
+    return chain // step, chain % step, min(B, max(256, B // 64) * cap_scale)
+
+
+def exit_trip(leave, T: int, min_trips: int, cap: int):
+    """The reference's exit trip (int32 0-dim) from each lane's `leave`:
+    the first t in [min_trips, T) whose pool #{leave > t} is <= cap, else
+    T; min(T, min_trips) when nothing qualifies earlier."""
+    hist = torch.bincount(leave.to(torch.int64), minlength=T + 1)
+    suffix = hist.flip(0).cumsum(0).flip(0)  # suffix[t] = #{leave >= t}
+    pool = torch.cat([suffix[1:], suffix.new_zeros(1)])  # #{leave > t}
+    t = torch.arange(T + 1, device=leave.device)
+    ok = ((t >= min_trips) & (pool <= cap)) | (t == T)
+    return torch.argmax(ok.to(torch.int32)).to(torch.int32)
+
+
+def search_multistep_plain(lattice, latk, latk_inv, C, dollar_row: int, kmer_table,
+                           words, amb_bits, off: int, L: int, d: int, step: int,
+                           stop_width: int, min_trips: int = 0, cap_scale: int = 1,
+                           wide_steps: int = 0):
+    """Plain version of search_multistep, in the kernel's order: every
+    lane runs masked trips until it leaves the pool (no exit test), then
+    `exit_trip` and the unfinished rule. Same outputs as the kernel."""
+    T, p, cap = _shape(L, d, step, wide_steps, words.shape[0], cap_scale)
     A = 4**step
     R = OCCK_BLOCK[step]
     B = words.shape[0]
@@ -102,41 +126,141 @@ def search_early_stop_packed(lattice, latk, latk_inv, C, dollar_row: int,
         rem = torch.where(act, rem - 1, rem)
         stopped = stopped | (act & ((ep - sp) <= 0))
 
-    chain = chain - wide_steps
-    p = chain % step
-    T = chain // step
-
-    cap = min(B, max(256, B // 64) * cap_scale)
-    t = 0
+    leave = torch.where(stopped, 0, T).to(torch.int32)
     if T > 0:
         t_all, a_all = prep.smer_codes_packed(words, amb_bits, off + p, T, step)
-        while t < T:
-            if t >= min_trips and int((~stopped & ~strag).sum()) <= cap:
-                break
+        for t in range(T):
             g = T - 1 - t
-            tS = t_all[:, g]
-            aS = a_all[:, g]
             active = ~stopped & ~strag
             # inactive lanes gather record 0, as the reference does
             rec = latk.index_select(0, torch.where(active, sp // R, 0))
-            sp_n, ep_n, sK = occk_pair_from_record(rec, tS, sp, ep, latk_inv, A, R)
-            sp_n = torch.where(aS, 0, sp_n)
-            ep_n = torch.where(aS, 0, ep_n)
-            sp = torch.where(active, sp_n, sp)
-            ep = torch.where(active, ep_n, ep)
+            sp_n, ep_n, sK = occk_pair_from_record(rec, t_all[:, g], sp, ep, latk_inv, A, R)
+            aS = a_all[:, g]
+            sp = torch.where(active, torch.where(aS, 0, sp_n), sp)
+            ep = torch.where(active, torch.where(aS, 0, ep_n), ep)
             rem = torch.where(active, rem - step, rem)
             strag = strag | (active & sK)
             width = ep - sp
             may_stop = (width <= stop_width) & ((t + 1 >= min_trips) | (width <= 0))
             stopped = stopped | (active & ~sK & may_stop)
-            t += 1
+            leave = torch.where(active & (stopped | strag), t + 1, leave)
 
-    unfinished = (~stopped & (rem > 0)) | strag
-    sp, ep, overflow = _fixup_stragglers_packed(
-        lattice, C, dollar_row, words, amb_bits, off, L,
-        sp0, ep0, sp, ep, unfinished, d, cap=cap,
-    )
+    trips = exit_trip(leave, T, min_trips, cap)
+    unfinished = (~stopped & (rem > 0)) | strag | (leave > trips)
     rem = torch.where(unfinished, 0, rem)
+    return sp0, ep0, sp, ep, rem, unfinished, trips
+
+
+def search_multistep(lattice, latk, latk_inv, C, dollar_row: int, kmer_table, words,
+                     amb_bits, off: int, L: int, d: int, step: int, stop_width: int,
+                     min_trips: int = 0, cap_scale: int = 1, wide_steps: int = 0):
+    """Everything of search_early_stop_packed before its finisher, for
+    the pattern bases [off, off+L) of each 2-bit packed row (int32[B, W]
+    words and ambiguity bits). Returns (sp0, ep0, sp, ep, rem, unfinished
+    bool[B], trips int32 0-dim): the start intervals, each lane's interval
+    and remaining bases (0 on unfinished lanes), the lanes the finisher
+    must run, and the reference's multi-step trips. The CUDA kernel on
+    CUDA tensors, `search_multistep_plain` on CPU tensors, else an error;
+    the two are equal on every output.
+
+    The kernel (csrc/searchk.cu) replaces the prologue, wide phase and
+    while_loop of bwtpu/kernels/searchk.py::search_early_stop_packed:
+    one group of R / 16 threads per lane runs the lane's trips, a record's
+    code bytes counted 16 at a time per thread; each lane adds its
+    `leave` to a histogram, and a second kernel finds the exit trip from
+    it and applies the unfinished rule, all on the device."""
+    if not _build.on_cuda("search_multistep", words):
+        return search_multistep_plain(lattice, latk, latk_inv, C, dollar_row, kmer_table,
+                                      words, amb_bits, off, L, d, step, stop_width,
+                                      min_trips, cap_scale, wide_steps)
+    dev = words.device
+    for name, t, ndim in (("lattice", lattice, 2), ("latk", latk, 2),
+                          ("latk_inv", latk_inv, 1), ("C", C, 1),
+                          ("kmer_table", kmer_table, 2), ("words", words, 2),
+                          ("amb_bits", amb_bits, 2)):
+        _build.check_tensor("search_multistep", name, t, torch.int32, ndim, dev)
+    B, W = words.shape
+    T, _, cap = _shape(L, d, step, wide_steps, B, cap_scale)
+    if lattice.shape[1] != 32 or C.shape[0] < 5 or latk_inv.shape[0] != 4:
+        raise ValueError("search_multistep: lattice must be [n_blocks+1, 32], C [>=5] "
+                         "and latk_inv [4]")
+    if latk.shape[1] != OCCK_WIDTH[step] or kmer_table.shape != (4**d, 2):
+        raise ValueError(f"search_multistep: latk must be [n_blocksK+1, {OCCK_WIDTH[step]}] "
+                         f"and kmer_table [{4**d}, 2] for step {step}, d {d}")
+    if amb_bits.shape != (B, W) or off < 0 or off + L > 16 * W or d > 13:
+        raise ValueError("search_multistep: packed rows, slice and d disagree")
+    if lattice.data_ptr() % 16 or latk.data_ptr() % 16:
+        raise ValueError("search_multistep: lattice and latk must be 16-byte aligned")
+    out = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(6)]
+    sp0, ep0, sp, ep, rem, leave = out
+    unfinished = torch.empty(B, dtype=torch.bool, device=dev)
+    hist = torch.zeros(T + 1, dtype=torch.int32, device=dev)
+    trips = torch.empty((), dtype=torch.int32, device=dev)
+    lib = _build.library("searchk")
+    f = lib.bwtpu_search_multistep
+    if f.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        f.restype = i
+        f.argtypes = [p, p, p, p, i, p, p, p] + [i] * 11 + [p] * 10
+    rc = f(lattice.data_ptr(), latk.data_ptr(), latk_inv.data_ptr(), C.data_ptr(),
+           int(dollar_row), kmer_table.data_ptr(), words.data_ptr(), amb_bits.data_ptr(),
+           B, W, off, L, d, step, stop_width, min_trips, wide_steps, T, cap,
+           *(t.data_ptr() for t in out), unfinished.data_ptr(), hist.data_ptr(),
+           trips.data_ptr(), _build.stream_of(words))
+    _build.check(lib, rc, "search_multistep")
+    _build.count_launch(search_multistep)
+    return sp0, ep0, sp, ep, rem, unfinished, trips
+
+
+search_multistep.launches = 0  # kernel launches since the last reset
+
+
+def _early_stop(multistep, lattice, latk, latk_inv, C, dollar_row, kmer_table, words,
+                amb_bits, off, L, d, step, stop_width, min_trips, cap_scale, wide_steps,
+                with_stats):
+    sp0, ep0, sp, ep, rem, unfinished, trips = multistep(
+        lattice, latk, latk_inv, C, dollar_row, kmer_table, words, amb_bits, off, L, d,
+        step, stop_width, min_trips, cap_scale, wide_steps)
+    cap = _shape(L, d, step, wide_steps, words.shape[0], cap_scale)[2]
+    sp, ep, overflow = _fixup_stragglers_packed(lattice, C, dollar_row, words, amb_bits, off,
+                                                L, sp0, ep0, sp, ep, unfinished, d, cap=cap)
     if with_stats:
-        return sp, ep, rem, overflow, t, unfinished.sum(dtype=torch.int32)
+        return sp, ep, rem, overflow, trips, unfinished.sum(dtype=torch.int32)
     return sp, ep, rem, overflow
+
+
+def search_early_stop_packed(lattice, latk, latk_inv, C, dollar_row: int,
+                             kmer_table, words, amb_bits, off: int, L: int,
+                             d: int, step: int, stop_width: int,
+                             min_trips: int = 0, cap_scale: int = 1,
+                             wide_steps: int = 0, with_stats: bool = False):
+    """Backward search of the pattern bases [off, off+L) of each packed
+    row that stops each lane once ep - sp <= stop_width.
+
+    Returns (sp, ep, remaining, overflow): the interval matches the
+    pattern SUFFIX P[remaining:]; lanes that stay wide or straggle finish
+    on the compacted two-gather chain with remaining == 0; overflow flags
+    (int32[B]) the lanes past that finisher's capacity. Index ranges of
+    the gathers: key < 4^d, and sp // R <= n // R for active lanes.
+
+    with_stats: also return the multi-step trips taken and the number of
+    lanes handed to the finisher, both int32 0-dim device tensors, as
+    bwtpu's (sp, ep, rem, overflow, trips, n_unf); the bench's roofline
+    reads them. Nothing here syncs with the host.
+    """
+    return _early_stop(search_multistep, lattice, latk, latk_inv, C, dollar_row, kmer_table,
+                       words, amb_bits, off, L, d, step, stop_width, min_trips, cap_scale,
+                       wide_steps, with_stats)
+
+
+def search_early_stop_packed_plain(lattice, latk, latk_inv, C, dollar_row: int,
+                                   kmer_table, words, amb_bits, off: int, L: int,
+                                   d: int, step: int, stop_width: int,
+                                   min_trips: int = 0, cap_scale: int = 1,
+                                   wide_steps: int = 0, with_stats: bool = False):
+    """search_early_stop_packed with search_multistep_plain in place of
+    the kernel, on any device (the finisher as in search_early_stop_packed):
+    what chip_smoke.py and the card tests hold the kernel path against."""
+    return _early_stop(search_multistep_plain, lattice, latk, latk_inv, C, dollar_row,
+                       kmer_table, words, amb_bits, off, L, d, step, stop_width, min_trips,
+                       cap_scale, wide_steps, with_stats)

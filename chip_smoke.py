@@ -6,15 +6,19 @@
 Phases, in order; any failure raises and the exit code is not 0:
   1. the card: nvidia-smi name + power limit, torch's device name;
   2. build and load the port's native host library (g++, from
-     bwtpu_torch/csrc/host; required), then the seven CUDA kernels
+     bwtpu_torch/csrc/host; required), then the eight CUDA kernel sources
      (nvcc, sm_90a) from bwtpu_torch/csrc, one nvcc per source, all
      started together; registers, stack frame and spills of each source;
   3. `build-index --sa-rate 1` of the E. coli-size genome (phase 7's
      index); each kernel against its plain-torch version on the card
      (exact equality), with CUDA-event times of both (a run of 50
      launches between one event pair, divided by 50) and its bound:
-     search_chain2, locate_walk and verify_nm on the very arguments one
-     block of phase 5's reads hands them (k = 0 and k = 2; search_chain2
+     search_multistep, search_chain2, locate_walk and verify_nm on the very
+     arguments one block of phase 5's reads hands them (k = 0 and k = 2;
+     search_multistep also as the whole search_early_stop_packed against
+     its plain version, on edge calls (step 4, wide phase, min_trips,
+     cap_scale, T = 0) and under sync debug mode "error", with a report of
+     the first syncing op of a whole Engine.dispatch_block; search_chain2
      also on one lane alone, its latency floor), search_chain1 on the
      very arguments one batch of phase 6's reads hands it through
      Engine.dispatch_batch (k = 0 reads and k = 2 seeds, each timed 3x;
@@ -30,20 +34,21 @@ Phases, in order; any failure raises and the exit code is not 0:
      defaults, 131,072 simulated 100 bp reads (<= 2 mismatches), port
      CLI `align -k 0` and `-k 2` at batch 16,384; checks truth recovery,
      a brute-force Hamming scan of 256 sampled reads, SAM determinism,
-     zero truncated reads and that locate_walk, verify_nm and (in the
-     straggler finisher) search_chain2 ran on that path;
+     zero truncated reads and that search_multistep, locate_walk,
+     verify_nm and (in the straggler finisher) search_chain2 ran on that
+     path;
   6. the Read-list path on the same index: 131,072 reads of 50-100 bp
      as FASTA through the port CLI at k = 0 and k = 2, batch 16,384
      (Engine.dispatch_batch -> backward_search_ra); the same checks, and
-     all four kernels launched;
+     all four kernels launched, search_multistep not;
   7. bench.py's single-end configuration: phase 3's sa_rate 1 index (the
      locv table on), the same FASTQ through the port CLI at batch 16,384:
      `-k 0 --autotune-caps`, `-k 2 --autotune-caps` and `-k 2 --tiered
      --autotune-caps`. The k = 0 and k = 2 SAM byte-equal to phase 5's;
      tiered holds the stratum contract against brute force on 256
      sampled reads; truth; 0 truncated reads; the tuned loc_factor <= its
-     ceiling; verify_locv and search_chain2 launched, locate_walk and
-     verify_nm not;
+     ceiling; search_multistep, verify_locv and search_chain2 launched,
+     locate_walk and verify_nm not;
   8. the A/B entry point of the row gather (scripts/torch_gather_ab.py)
      at a locv row's width, at the text-row table's size (phase 3 timed
      the locv table's): an L2-resident gather rate, against which
@@ -62,8 +67,9 @@ Phases, in order; any failure raises and the exit code is not 0:
      on the card), 65,536 pairs of 100 bp through `align --paired` at
      k = 0 and 2: pair truth, the paired Read-list loop byte-equal to the
      columnar path, brute force on 256 sampled mate-1 reads against a
-     single-end pass, no truncated read, locate_walk, verify_nm and
-     search_chain2 launched at least once per shard and block;
+     single-end pass, no truncated read, search_multistep, locate_walk,
+     verify_nm and search_chain2 launched at least once per shard and
+     block;
  11. wide reads: `build-index --read-len 400` of a 1 Mbp random genome,
      4,096 reads of 400 bp at k = 2 through the port CLI (verify_nm's
      run-time-W instance): truth, brute force on 256 sampled reads, the
@@ -81,16 +87,19 @@ Phases, in order; any failure raises and the exit code is not 0:
      Each run's merged per-rank SAM bodies byte-equal to sam.emit_sam /
      pair_and_emit_sam over the single-process Engine.align_all on the
      same reads (which phases 5 and 10 hold against truth and brute
-     force); locate_walk, verify_nm and search_chain2 launched in every
-     rank and run; reads/s, wall, heals and transport per rank;
+     force); search_multistep, locate_walk, verify_nm and search_chain2
+     launched in every rank and run; reads/s, wall, heals and transport
+     per rank;
  13. the bench: `python -m bwtpu_torch.cli bench` at its defaults (bench.py's
      configuration at full size) in a subprocess: rc 0, the JSON line with
      every key of bench.py's, platform cuda, every rate > 0, every overflow
      0, no null roofline or probe field, no guarded section failed;
      verify_locv, search_chain2 and row_gather_sum launched in its sections,
+     search_multistep in each device, e2e and roofline section, it,
      locate_walk and verify_nm in every probe rank; then `align --profile`
      on phase 5's FASTQ at k = 2: SAM byte-equal to phase 5's, and
-     locate_walk, verify_nm and search_chain2 named as kernels in the trace;
+     search_multistep, locate_walk, verify_nm and search_chain2 named as
+     kernels in the trace;
  14. the result lines.
 
 The genome is random at E. coli size (4,641,652 bp) with one dispersed
@@ -471,40 +480,50 @@ def timing(owner, name: str, secs: dict, sync: bool = False):
 
 
 def main_path_kernels(idx, block_reads):
-    """search_chain2, locate_walk and verify_nm on the arguments the main
-    path itself hands them: one block of phase 5's reads through
-    Engine.dispatch_block + finish_block on the CLI-default index, at
-    k = 0 (the full-read finisher) and k = 2 (the seeds' finishers,
-    65,536 locate and verify lanes). Each call is checked against its
-    plain version and timed (RUNS timings, their median recorded and
-    their range printed); its bound is counted from these inputs."""
+    """search_multistep, search_chain2, locate_walk and verify_nm on the
+    arguments the main path itself hands them: one block of phase 5's
+    reads through Engine.dispatch_block + finish_block on the CLI-default
+    index, at k = 0 (the full-read search and its finisher) and k = 2
+    (three seed searches and their finishers, 65,536 locate and verify
+    lanes). Each call is checked against its plain version and timed
+    (RUNS timings, their median recorded and their range printed); its
+    bound is counted from these inputs. search_multistep's calls are
+    also held as the whole search_early_stop_packed against its plain
+    version; then its edge calls and the sync check."""
     import torch
 
     from bwtpu_torch import engine
-    from bwtpu_torch.kernels import locate, search2
+    from bwtpu_torch.kernels import locate, search2, searchk
     from bwtpu_torch.kernels.verify2 import verify_nm, verify_nm_plain
     from bwtpu_torch.readblock import ReadBlock
 
     blk = ReadBlock.from_reads(block_reads)
-    calls = {k: {"search_chain2": [], "locate_walk": [], "verify_nm": []} for k in (0, 2)}
+    names = ("search_multistep", "search_chain2", "locate_walk", "verify_nm")
+    calls = {k: {n: [] for n in names} for k in (0, 2)}
     for k in (0, 2):
         eng = engine.Engine([idx], device="cuda")
-        with capturing(search2, "search_chain2", calls[k]["search_chain2"]), \
+        with capturing(searchk, "search_multistep", calls[k]["search_multistep"]), \
+                capturing(search2, "search_chain2", calls[k]["search_chain2"]), \
                 capturing(engine, "locate_walk", calls[k]["locate_walk"]), \
                 capturing(engine, "verify_nm", calls[k]["verify_nm"]):
             eng.finish_block(eng.dispatch_block(blk, k, pad_to=BATCH))
         say(f"  one block of phase 5 at k={k}: heals {eng.stats.heals}; calls "
             f"{ {n: len(c) for n, c in calls[k].items()} }")
-    kernels = {"search_chain2": (search2.search_chain2, search2._chain2_plain, chain2_work),
+    kernels = {"search_multistep": (searchk.search_multistep, searchk.search_multistep_plain,
+                                    multistep_work),
+               "search_chain2": (search2.search_chain2, search2._chain2_plain, chain2_work),
                "locate_walk": (locate.locate_walk, locate._locate_plain, locate_work),
                "verify_nm": (verify_nm, verify_nm_plain, verify_work)}
     # (name, k, call index, time the plain version too): the first call of
     # the block at each k; the heal's re-run repeats them at doubled caps
-    require(calls[0]["search_chain2"] and len(calls[2]["search_chain2"]) >= 3
+    require(len(calls[0]["search_multistep"]) >= 1 and len(calls[2]["search_multistep"]) >= 3
+            and calls[0]["search_chain2"] and len(calls[2]["search_chain2"]) >= 3
             and calls[2]["locate_walk"] and calls[2]["verify_nm"],
             f"the block did not reach every kernel: "
             f"{ {k: {n: len(c) for n, c in v.items()} for k, v in calls.items()} }")
-    plan = [("search_chain2", 0, 0, True)] + [
+    plan = [("search_multistep", 0, 0, True)] + [
+        ("search_multistep", 2, i, i == 0) for i in range(3)] + [
+        ("search_chain2", 0, 0, True)] + [
         ("search_chain2", 2, i, i == 0) for i in range(3)] + [
         ("locate_walk", 2, 0, True), ("verify_nm", 2, 0, True)]
     records = {}
@@ -516,10 +535,13 @@ def main_path_kernels(idx, block_reads):
         torch.cuda.synchronize()
         err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
         require(err == 0, f"{name} != plain on the main path's call (k={k}, #{i})")
+        if name == "search_multistep":
+            multistep_whole(args, k, i)
         targs = fresh_args(name, args)
         mine = sorted(cuda_ms(lambda: kern(*targs)) for _ in range(RUNS))
         ms = mine[RUNS // 2]
-        plain_ms = (cuda_ms(lambda: plain(*fresh_args(name, args))) if time_plain
+        plain_ms = (cuda_ms(lambda: plain(*fresh_args(name, args)),
+                            reps=5 if name == "search_multistep" else 50) if time_plain
                     else None)
         nbytes, ops, what = work(args)
         rec = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, **bound(nbytes, ops))
@@ -530,8 +552,15 @@ def main_path_kernels(idx, block_reads):
               f"{rec['bound_bytes']} B, {rec['bound_ops']} ops)")
         if name == "search_chain2" and k == 0:
             rec.update(chain2_floor(kern, args))
+        if name == "search_multistep" and k == 2:
+            records[name].setdefault("k2_ms", []).append(ms)
+            records[name].setdefault("k2_bound_ms", []).append(rec["bound_ms"])
+            if time_plain:
+                records[name]["k2_plain_ms"] = plain_ms
         if name not in records:
             records[name] = rec
+    multistep_edges(idx, calls[0]["search_multistep"][0])
+    multistep_no_sync(idx, calls[0]["search_multistep"][0], blk)
     return records
 
 
@@ -567,6 +596,197 @@ def chain2_floor(kern, args) -> dict:
         f"{out['L1']:.4f} ms ({out['L1'] / steps * 1e3:.3f} us per step) on a 4.2 KB "
         f"lattice (L1)")
     return {"one_lane_ms": out["L2"], "one_lane_l1_ms": out["L1"]}
+
+
+def multistep_whole(args, k: int, i: int) -> None:
+    """One search_multistep call's arguments through the whole
+    search_early_stop_packed and through search_early_stop_packed_plain
+    (the plain search, the same finisher): every output equal."""
+    import torch
+
+    from bwtpu_torch.kernels import searchk
+
+    got = searchk.search_early_stop_packed(*args, with_stats=True)
+    want = searchk.search_early_stop_packed_plain(*args, with_stats=True)
+    torch.cuda.synchronize()
+    names = ("sp", "ep", "rem", "overflow", "trips", "n_unf")
+    bad = [n for n, a, b in zip(names, got, want) if not torch.equal(a, b)]
+    require(not bad, f"search_early_stop_packed != plain (k={k}, call {i}): {bad}")
+    say(f"  search_early_stop_packed k={k} call {i} (off {args[8]}, L {args[9]}, d {args[10]}): "
+        f"{', '.join(names)} equal to the plain version; trips {int(want[4])}, "
+        f"n_unf {int(want[5])}, overflow {int(want[3].sum())}")
+
+
+def multistep_work(args):
+    """(bytes, ops, what) of a search_multistep call, counted in 32 B
+    sectors from the plain version's trips replayed: each lane's pattern
+    words (both planes), its start-table entry (8 B, none on an ambiguous
+    tail), the two sectors (checkpoint and BWT words) of each search
+    lattice record the wide phase reads, and of each s-mer record a trip
+    reads the fold word's sector and the code-byte sectors below the
+    lane's clamped interval end; each sector once. Outputs: six int32 and
+    one flag a lane, the histogram and trips. Operations: 2 per counted
+    code byte (compare, add), 60 per lane-trip, 40 per lane."""
+    import torch
+
+    from bwtpu_torch.index import OCCK_BLOCK
+    from bwtpu_torch.kernels import common, prep, searchk
+
+    lat, latk, inv, C, dr, kt, words, amb, off, L, d, step, stop, mt, cs, wide = args
+    B, W = words.shape
+    dev = words.device
+    T, p, _ = searchk._shape(L, d, step, wide, B, cs)
+    R, A = OCCK_BLOCK[step], 4**step
+    rec_sectors = latk.shape[1] * 4 // 32
+    lo, hi = off >> 4, (off + L - 1) >> 4
+    lanes = torch.arange(B, device=dev, dtype=torch.int64)
+    wi = (lanes[:, None] * W + torch.arange(lo, hi + 1, device=dev)[None, :]).reshape(-1)
+    row_sectors = 2 * n_unique(wi // 8)
+    key, amb_tail = prep.kmer_key_packed(words, amb, off, L, d)
+    kt_sectors = n_unique(key[~amb_tail].long() // 4)
+    sp = torch.where(amb_tail, 0, kt[key.long(), 0])
+    ep = torch.where(amb_tail, 0, kt[key.long(), 1])
+    chain = L - d
+    stopped = (ep - sp <= 0) if mt > 0 else (ep - sp <= stop)
+    wide_recs = []
+    for ws in range(wide):
+        c = prep.extract_bits(words, off + chain - 1 - ws, 2).to(torch.int32)
+        a = prep.extract_bits(amb, off + chain - 1 - ws, 2) != 0
+        act = ~stopped
+        wide_recs += [(sp >> 7)[act & ~a], (ep >> 7)[act & ~a]]
+        o_sp = common.occ(lat, dr, c, torch.where(act, sp, 0))
+        o_ep = common.occ(lat, dr, c, torch.where(act, ep, 0))
+        cb = common.select_scalar_table(C, c + 1, 8)
+        sp = torch.where(act, torch.where(a, 0, cb + o_sp), sp)
+        ep = torch.where(act, torch.where(a, 0, cb + o_ep), ep)
+        stopped = stopped | (act & (ep - sp <= 0))
+    secs, lane_trips, counted = [], 0, 0
+    strag = torch.zeros_like(stopped)
+    if T > 0:
+        t_all, a_all = prep.smer_codes_packed(words, amb, off + p, T, step)
+        for t in range(T):
+            g = T - 1 - t
+            active = ~stopped & ~strag
+            blk = (sp // R).long()
+            lim = (ep - blk * R).clamp(0, R)
+            live = active & ~a_all[:, g]
+            lane_trips += int(active.sum())
+            counted += int(lim[live].sum())
+            first = blk * rec_sectors + A * 4 // 32
+            n_sec = (lim + 31) // 32
+            span = torch.arange(R // 32, device=dev)
+            sec = first[:, None] + span[None, :]
+            secs += [sec[live[:, None] & (span[None, :] < n_sec[:, None])],
+                     (blk * rec_sectors + t_all[:, g] // 8)[live]]
+            rec = latk.index_select(0, torch.where(active, sp // R, 0))
+            sp_n, ep_n, sK = searchk.occk_pair_from_record(rec, t_all[:, g], sp, ep, inv, A, R)
+            aS = a_all[:, g]
+            sp = torch.where(active, torch.where(aS, 0, sp_n), sp)
+            ep = torch.where(active, torch.where(aS, 0, ep_n), ep)
+            strag = strag | (active & sK)
+            width = ep - sp
+            stopped = stopped | (active & ~sK & (width <= stop) & ((t + 1 >= mt) | (width <= 0)))
+    nbytes = 32 * (row_sectors + kt_sectors + 2 * (n_unique(torch.cat(wide_recs)) if wide_recs
+                                                     else 0)
+                   + (n_unique(torch.cat(secs)) if secs else 0)) + B * 25 + (T + 2) * 4
+    ops = 2 * counted + 60 * lane_trips + 40 * B
+    return nbytes, ops, f"{B} lanes x L {L}, d {d}, T {T}, {lane_trips} lane-trips"
+
+
+def multistep_edges(idx, args0) -> None:
+    """search_multistep and the whole search against their plain versions
+    on edge calls: phase 5's block (args0, its k = 0 call) at min_trips 0
+    and 3, wide_steps 1 and 2, T = 0 (the last d + 1 bases), stop width 0 at
+    cap_scale 4-32, of which one must exit strictly between min_trips and
+    T; then a step-4 lattice (a 1 Mbp random genome built with occ_step=4,
+    8,192 reads of 100 bp): the full read, a seed slice with the wide
+    phase, and stop width 0."""
+    import torch
+
+    from bwtpu_torch.config import EngineConfig
+    from bwtpu_torch.engine import device_prep_packed, pack_reads_for_bench
+    from bwtpu_torch.index import build_fm_index
+    from bwtpu_torch.kernels import searchk
+    from bwtpu_torch.simulate import random_genome, simulate_reads
+
+    head = args0[:8]
+    off, L, d, step, stop, mt, cs, _ = args0[8:]
+    edges = [("min_trips 0", head + (off, L, d, step, stop, 0, cs, 0)),
+             ("min_trips 3", head + (off, L, d, step, stop, 3, cs, 0)),
+             ("wide_steps 1", head + (off, L, d, step, stop, mt, cs, 1)),
+             ("wide_steps 2", head + (off, L, d, step, stop, mt, cs, 2)),
+             ("T = 0", head + (L - d - 1, d + 1, d, step, stop, mt, cs, 0))]
+    edges += [(f"stop 0, cap_scale {c}", head + (off, L, d, step, 0, mt, c, 0))
+              for c in (4, 8, 16, 32)]
+    g4 = random_genome(1_000_000, seed=SEED + 15)
+    idx4 = build_fm_index(g4, EngineConfig(sa_rate=8, occ_step=4))
+    reads4, _ = simulate_reads(g4, 8192, read_len=100, max_mismatches=2, n_frac=0.005,
+                               seed=SEED + 16)
+    dev = args0[0].device
+    put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    rw2, ab2, _, _ = device_prep_packed(*(put(a) for a in pack_reads_for_bench(reads4)), 100)
+    d4 = max(idx4.kmer_tables)
+    for dd, (o, sl, sw, m, c, w) in ((d4, (0, 100, 16, 1, 1, 0)), (8, (33, 34, 32, 1, 1, 1)),
+                                     (d4, (0, 100, 0, 1, 4, 0))):
+        h4 = (put(idx4.search_lattice), put(idx4.occk_lattice), put(idx4.occk_invalid),
+              put(idx4.C), idx4.dollar_row, put(idx4.kmer_tables[dd]), rw2, ab2)
+        edges.append((f"step 4 (off {o}, L {sl}, d {dd}, stop {sw}, cap_scale {c}, "
+                      f"wide {w})", h4 + (o, sl, dd, 4, sw, m, c, w)))
+    between = []
+    for what, a in edges:
+        got, want = searchk.search_multistep(*a), searchk.search_multistep_plain(*a)
+        whole = searchk.search_early_stop_packed(*a, with_stats=True)
+        whole_plain = searchk.search_early_stop_packed_plain(*a, with_stats=True)
+        torch.cuda.synchronize()
+        require(all(torch.equal(x, y) for x, y in zip(got, want))
+                and all(torch.equal(x, y) for x, y in zip(whole, whole_plain)),
+                f"search_multistep edge call {what}: kernel != plain")
+        T = searchk._shape(a[9], a[10], a[11], a[15], a[6].shape[0], a[14])[0]
+        trips = int(want[6])
+        if what.startswith("stop 0") and a[13] < trips < T:
+            between.append(what)
+        require(what != "T = 0" or T == trips == 0, f"edge call T = 0: T {T}, trips {trips}")
+        say(f"  search_multistep edge {what}: equal (all 7 outputs, and the whole search's "
+            f"6); T {T}, trips {trips}, n_unf {int(want[5].sum())}")
+    require(between, "no edge call exited strictly between min_trips and T")
+
+
+def multistep_no_sync(idx, args0, blk) -> None:
+    """The k = 0 search (with_stats=False) under sync debug mode "error"
+    must not raise; then a report, not a gate: whether a whole
+    Engine.dispatch_block raises under it, and at which op."""
+    import traceback
+
+    import torch
+
+    from bwtpu_torch import engine
+    from bwtpu_torch.kernels import searchk
+
+    want = searchk.search_early_stop_packed(*args0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = searchk.search_early_stop_packed(*args0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    require(all(torch.equal(x, y) for x, y in zip(got, want)), "search under sync debug")
+    eng = engine.Engine([idx], device="cuda")
+    eng.finish_block(eng.dispatch_block(blk, 0, pad_to=BATCH))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.dispatch_block(blk, 0, pad_to=BATCH)
+        where = "it did not raise"
+    except RuntimeError as e:
+        f = [fr for fr in traceback.extract_tb(e.__traceback__) if "bwtpu_torch" in fr.filename]
+        at = f"{os.path.relpath(f[-1].filename)}:{f[-1].lineno} ({f[-1].line})" if f else "?"
+        where = f"it raised at {at}: {str(e).splitlines()[0]}"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    say(f"  no sync: search_early_stop_packed (k = 0 call, with_stats=False) ran under "
+        f"torch.cuda.set_sync_debug_mode('error'); a whole Engine.dispatch_block (k = 0, "
+        f"report only): {where}")
 
 
 RUNS = 3  # timings of each main-path call (the spread)
@@ -1036,7 +1256,7 @@ def phase_main(tmp: str, genome: str, fa: str, reads, truth):
         launches = read_launches()
         # slice 1's path: the multi-step search, its two-record finisher,
         # locate and verify; the 1-step mainline is not on it
-        need = ("locate_walk", "verify_nm", "search_chain2")
+        need = ("search_multistep", "locate_walk", "verify_nm", "search_chain2")
         require(all(launches[n] > 0 for n in need), f"k={k}: a kernel never ran: {launches}")
         with open(sam, "rb") as f:
             sam_bytes = f.read()
@@ -1104,7 +1324,8 @@ def phase_read_list(tmp: str, genome: str, idx_dir: str, reads, truth):
                            "--batch-size", str(BATCH), "--device", "cuda"])
         launches = read_launches()
         need = ("search_chain1", "search_chain2", "locate_walk") + (("verify_nm",) if k else ())
-        require(all(launches[n] > 0 for n in need), f"k={k}: a kernel never ran: {launches}")
+        require(all(launches[n] > 0 for n in need) and launches["search_multistep"] == 0,
+                f"k={k}: launches {launches}")
         with open(sam, "rb") as f:
             sam_bytes = f.read()
         require(sam_bytes == want_sam.getvalue().encode(),
@@ -1202,7 +1423,8 @@ def phase_locv(tmp: str, p5: dict, idx_dir: str):
         require(sam_bytes == b"".join(sam_parts), f"{name}: CLI SAM differs from the engine pass")
         require(summary["reads"] == N_READS and summary["truncated_reads"] == 0
                 and b"xo:i:1" not in sam_bytes, f"{name}: {summary}")
-        need, never = ("verify_locv", "search_chain2"), ("locate_walk", "verify_nm")
+        need = ("search_multistep", "verify_locv", "search_chain2")
+        never = ("locate_walk", "verify_nm")
         require(all(launches[n] > 0 for n in need) and not any(launches[n] for n in never),
                 f"{name}: launches {launches}")
         if not tiered:
@@ -1440,7 +1662,7 @@ def phase_paired(tmp: str):
             if route == "columnar":
                 stats[k] = launches
                 per = {n: launches[n] / (2 * n_blocks) for n in
-                       ("locate_walk", "verify_nm", "search_chain2")}
+                       ("search_multistep", "locate_walk", "verify_nm", "search_chain2")}
                 require(all(v >= 1 for v in per.values()),
                         f"paired k={k}: launches per shard and block {per}")
                 rate = summary["reads_per_s"], summary["wall_s"]
@@ -1648,7 +1870,7 @@ def ring_runs(tmp: str, smi: str, name: str, device: str, backend: str, index: s
         ref = refs[label]
         require(merged == ref["sam"], f"{name} {label}: the ranks' SAM differs from the "
                                       f"single-process Engine's")
-        need = ("locate_walk", "verify_nm", "search_chain2")
+        need = ("search_multistep", "locate_walk", "verify_nm", "search_chain2")
         for r in range(world):
             launches, sm = res[r][j]["launches"], res[r][j]["summary"]
             require(all(launches[n] > 0 for n in need),
@@ -1796,9 +2018,9 @@ def chain1_l2(rec: dict, bytes_per_ms: float) -> None:
 
 
 BENCH_TIMEOUT = 600  # seconds for the full-size bench subprocess (~230 s on an H100)
-# the kernel function names of the three wrappers align --profile runs
-TRACE_KERNELS = {"locate_walk": "locate_walk_kernel", "verify_nm": "verify_nm",
-                 "search_chain2": "chain2_"}
+# the kernel function names of the four wrappers align --profile runs
+TRACE_KERNELS = {"search_multistep": "multistep_kernel", "locate_walk": "locate_walk_kernel",
+                 "verify_nm": "verify_nm", "search_chain2": "chain2_"}
 
 
 def bench_py_keys(root: str) -> tuple[set, set]:
@@ -1883,19 +2105,27 @@ def phase_bench(tmp: str, smi: str, root: str, idx5: str, p5: dict) -> tuple[dic
     require(all(ex[k] is not None for k in set_),
             f"bench: null fields {[k for k in set_ if ex[k] is None]}")
     # launches: every section of the bench process, and each probe rank's
-    total, ranks = {}, []
+    total, ranks, sections = {}, [], {}
     for ln in err:
         if ln.startswith("# launches "):
             _, _, name, counts = ln.split(" ", 3)
             counts = json.loads(counts)
             if name.startswith("multihost_"):
                 ranks.append((name, counts))
+            else:
+                sections[name] = counts
             for n, c in counts.items():
                 total[n] = total.get(n, 0) + c
     require(all(total[n] > 0 for n in ("verify_locv", "search_chain2", "row_gather_sum")),
             f"bench: launches {total}")
+    searched = [n for n in sections if n in ("exact", "k2", "tiered", "lowerr", "roofline")
+                or n.startswith("e2e_") and n != "e2e_setup"]
+    require(len(searched) == 10 and all(sections[n]["search_multistep"] > 0 for n in searched),
+            f"bench: search_multistep launches by section "
+            f"{ {n: sections[n]['search_multistep'] for n in sections} }")
     require(len(ranks) == 6 and all(c["locate_walk"] > 0 and c["verify_nm"] > 0
-                                    for _, c in ranks), f"bench: probe ranks launched {ranks}")
+                                    and c["search_multistep"] > 0 for _, c in ranks),
+            f"bench: probe ranks launched {ranks}")
     say(f"  bench: {wall:.1f} s; launches (sections and probe ranks) {total}; {smi}")
 
     # align --profile: the Read-list route inside a torch.profiler window
@@ -1931,6 +2161,7 @@ KERNELS = {  # name: (source, TPU kernel (or jnp code) it replaces)
     "verify_nm": ("bwtpu_torch/csrc/verify.cu", "bwtpu/kernels/pallas_step.py:302"),
     "search_chain1": ("bwtpu_torch/csrc/search1.cu", "bwtpu/kernels/pallas_step.py:179"),
     "search_chain2": ("bwtpu_torch/csrc/search2.cu", "bwtpu/kernels/pallas_step.py:115"),
+    "search_multistep": ("bwtpu_torch/csrc/searchk.cu", "bwtpu/kernels/searchk.py:296"),
     "verify_locv": ("bwtpu_torch/csrc/verify.cu",
                     "bwtpu/kernels/verify2.py:129, bwtpu/engine.py:548"),
     "row_gather_sum": ("bwtpu_torch/csrc/gather.cu", "scripts/pallas_gather_ab.py:37"),

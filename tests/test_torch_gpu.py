@@ -530,6 +530,107 @@ def test_sw_band_refuses_a_band_without_an_instance(cuda):
         sw_score_batch(z, z[:, 0].contiguous(), z, z[:, 0].contiguous(), band=17)
 
 
+@pytest.fixture(scope="module")
+def multistep_world():
+    """Indexes with the step-3 and step-4 lattices (a random genome and a
+    tandem one, whose intervals straggle), and 2,500 reads of 100 bp per
+    genome with substitutions and N bases, packed (numpy) with the
+    forward rows first, as device_prep_packed stacks the strands."""
+    from bwtpu_torch.simulate import adversarial_genome
+
+    out = {}
+    for kind, genome in (("random", GENOME), ("tandem", adversarial_genome(60000, "tandem",
+                                                                           seed=5))):
+        reads, _ = simulate_reads(genome, 2500, read_len=L, max_mismatches=2, n_frac=0.005,
+                                  seed=41)
+        c, m = dna.encode_with_mask("".join(r.seq for r in reads))
+        codes, amb = c.reshape(-1, L).astype(np.int32), m.reshape(-1, L).astype(np.int32)
+        codes = np.concatenate([codes, 3 - codes[:, ::-1]])
+        amb = np.concatenate([amb, amb[:, ::-1]])
+        rw, ab, _ = pack_reads(codes, amb, np.full(len(codes), L, np.int32))
+        for step in (3, 4):
+            out[kind, step] = (build_fm_index(genome, EngineConfig(sa_rate=8, occ_step=step)),
+                               rw, ab)
+    return out
+
+
+def _multistep_args(world, kind, step, d, dev, off, slen, stop, min_trips, cap_scale, wide):
+    idx, rw, ab = world[kind, step]
+    d = min(d, max(idx.kmer_tables))
+    return (_t(idx.search_lattice, dev), _t(idx.occk_lattice, dev), _t(idx.occk_invalid, dev),
+            _t(idx.C, dev), idx.dollar_row, _t(idx.kmer_tables[d], dev), _t(rw, dev),
+            _t(ab, dev), off, slen, d, step, stop, min_trips, cap_scale, wide)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "tandem"])
+@pytest.mark.parametrize("step", [3, 4])
+@pytest.mark.parametrize("d,off,slen,stop,min_trips,cap_scale,wide", [
+    (11, 0, 100, 16, 1, 1, 0),    # the CLI default's full-read search
+    (11, 0, 100, 16, 0, 1, 0),    # min_trips 0: most lanes stop before a trip
+    (8, 33, 34, 32, 3, 1, 0),     # a k = 2 seed slice at off > 0
+    (11, 0, 100, 0, 0, 2, 0),     # only empty lanes stop: a late exit
+    (8, 0, 100, 4, 1, 1, 2),      # the wide phase
+    (8, 67, 33, 8, 1, 4, 1),      # the last seed, wide phase, cap_scale 4
+    (8, 40, 10, 16, 1, 1, 1),     # T = 0 (10 - 8 - 1 < step)
+    (8, 0, 100, 16, 200, 1, 0),   # min_trips past T: all T trips
+])
+def test_search_multistep_kernel_matches_plain(cuda, multistep_world, kind, step, d, off, slen,
+                                               stop, min_trips, cap_scale, wide):
+    """csrc/searchk.cu against search_multistep_plain on every output
+    (sp0, ep0, sp, ep, rem, unfinished, trips), then the whole
+    search_early_stop_packed against its plain version (finisher
+    included, with_stats)."""
+    from bwtpu_torch.kernels import searchk
+
+    args = _multistep_args(multistep_world, kind, step, d, cuda, off, slen, stop, min_trips,
+                           cap_scale, wide)
+    before = searchk.search_multistep.launches
+    got = searchk.search_multistep(*args)
+    want = searchk.search_multistep_plain(*args)
+    assert searchk.search_multistep.launches == before + 1
+    for name, a, b in zip(("sp0", "ep0", "sp", "ep", "rem", "unfinished", "trips"), got, want):
+        assert torch.equal(a, b), name
+    got = searchk.search_early_stop_packed(*args, with_stats=True)
+    want = searchk.search_early_stop_packed_plain(*args, with_stats=True)
+    for name, a, b in zip(("sp", "ep", "rem", "overflow", "trips", "n_unf"), got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_search_multistep_edge_batches(cuda, multistep_world):
+    """A batch of one lane and an empty batch (the exit alone: trips =
+    min(T, min_trips) with no lane), and a batch not a multiple of the
+    CTA's lanes."""
+    from bwtpu_torch.kernels import searchk
+
+    for n in (1, 0, 4097):
+        args = list(_multistep_args(multistep_world, "random", 3, 11, cuda, 0, 100, 16, 2, 1,
+                                    0))
+        args[6], args[7] = args[6][:n].contiguous(), args[7][:n].contiguous()
+        for a, b in zip(searchk.search_multistep(*args), searchk.search_multistep_plain(*args)):
+            assert torch.equal(a, b), n
+
+
+@pytest.mark.gpu
+def test_search_early_stop_packed_does_not_sync(cuda, multistep_world):
+    """The search with its finisher (with_stats=False) queues its work
+    without one host sync: it runs under sync debug mode "error"."""
+    from bwtpu_torch.kernels import _build, searchk
+
+    args = _multistep_args(multistep_world, "tandem", 3, 11, cuda, 0, 100, 16, 1, 1, 0)
+    _build.build_all(["searchk", "search2"])
+    want = searchk.search_early_stop_packed(*args)  # warm: allocator, libraries
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = searchk.search_early_stop_packed(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k,tiered", [(0, False), (2, False), (2, True)])
 def test_three_shard_engine_on_the_card_equals_the_cpu(cuda, k, tiered):

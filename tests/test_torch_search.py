@@ -1,6 +1,8 @@
 """bwtpu_torch's plain-torch device code against bwtpu's, lane by lane:
 lattice decoding (common), packed prep, compaction, and the multi-step
-early-stop search with its straggler finisher. Exact equality."""
+early-stop search with its straggler finisher (the plain version runs
+in the kernel's order: each lane to its own exit, then the whole-batch
+exit trip from the histogram of those exits). Exact equality."""
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +21,7 @@ from bwtpu.engine import pack_reads_for_bench, upload_index
 from bwtpu.index import build_fm_index
 from bwtpu.kernels.searchk import search_early_stop_packed as j_search
 from bwtpu.simulate import adversarial_genome, random_genome, simulate_reads
+from bwtpu_torch.kernels import searchk
 from bwtpu_torch.kernels.search import interval_rows
 from bwtpu_torch.kernels.searchk import search_early_stop_packed as t_search
 
@@ -180,3 +183,102 @@ def test_search_early_stop_packed_matches_bwtpu(genomes, kind, min_trips, wide_s
         assert ((rem == 0) & (ep - sp > stop)).any()
         if cap_scale == 1:
             assert over.sum() > 0, "finisher capacity was meant to bind"
+
+
+@pytest.fixture(scope="module")
+def genomes4(genomes):
+    """The genomes fixture's genomes and reads on a step-4 lattice."""
+    out = {}
+    for kind in ("random", "tandem"):
+        g = (random_genome(12000, seed=23) if kind == "random"
+             else adversarial_genome(12000, "tandem", seed=7))
+        idx = build_fm_index(g, EngineConfig(sa_rate=4, read_len=60, occ_step=4))
+        shard = jax.tree.map(lambda x: x[0], upload_index([idx]).shard)
+        out[kind] = (idx, shard, *genomes[kind][2:])
+    return out
+
+
+@pytest.mark.parametrize("case,kind,step,d,min_trips,wide_steps,cap_scale,off,L,stop", [
+    ("step 4", "random", 4, 4, 0, 0, 2, 0, 60, 0),
+    ("step 4", "tandem", 4, 6, 1, 0, 1, 0, 60, 4),
+    ("step 4", "tandem", 4, 4, 1, 1, 1, 0, 57, 2),
+    ("step 4", "random", 4, 6, 1, 2, 1, 20, 40, 2),
+    ("T = 0", "random", 3, 6, 0, 0, 1, 10, 8, 16),
+    ("T = 0", "tandem", 3, 6, 1, 1, 1, 0, 9, 2),
+    ("T = 0", "random", 4, 6, 0, 0, 1, 0, 6, 16),
+    ("p = 0, lanes finish at T", "random", 3, 6, 18, 0, 1, 0, 60, 0),
+    ("p = 0, lanes finish at T", "tandem", 4, 4, 14, 0, 1, 0, 60, 0),
+    ("exit between min_trips and T", "random", 3, 6, 0, 0, 2, 0, 60, 0),
+    ("exit between min_trips and T", "random", 3, 6, 2, 0, 1, 0, 60, 0),
+    ("exit between min_trips and T", "random", 4, 4, 2, 0, 1, 0, 60, 0),
+    ("exit between min_trips and T", "tandem", 4, 4, 2, 0, 1, 0, 60, 0),
+])
+def test_search_early_stop_packed_edge_cases_match_bwtpu(genomes, genomes4, case, kind, step,
+                                                         d, min_trips, wide_steps, cap_scale,
+                                                         off, L, stop):
+    """The multi-step search's corners against bwtpu, trips and n_unf
+    included: a step-4 lattice, no multi-step trip at all (T = 0), a
+    chain that divides into trips (p = 0) with lanes that run all T trips
+    and end finished, and a whole-batch exit strictly between min_trips
+    and T. Each case asserts that it reaches its corner."""
+    idx, shard, rw, ab = (genomes4 if step == 4 else genomes)[kind]
+    jargs = (shard.lattice, shard.latk, shard.latk_inv, shard.C, shard.dollar_row,
+             shard.kmer_tables[d], jnp.asarray(rw), jnp.asarray(ab))
+    want = j_search(*jargs, off, L, d, step, stop, min_trips, with_stats=True,
+                    cap_scale=cap_scale, wide_steps=wide_steps)
+    targs = (_t(idx.search_lattice), _t(idx.occk_lattice), _t(idx.occk_invalid),
+             _t(idx.C), idx.dollar_row, _t(idx.kmer_tables[d]), _t(rw), _t(ab),
+             off, L, d, step, stop, min_trips, cap_scale, wide_steps)
+    got = t_search(*targs, with_stats=True)
+    for name, a, b in zip(("sp", "ep", "rem", "overflow", "trips", "n_unf"), got, want):
+        _eq(a, b, f"{case}: {name}")
+    for a, b in zip(searchk.search_early_stop_packed_plain(*targs, with_stats=True), got):
+        _eq(a, b, case)
+    T, p, _ = searchk._shape(L, d, step, wide_steps, rw.shape[0], cap_scale)
+    trips = int(got[4])
+    _, _, _, _, rem, unf, _ = searchk.search_multistep_plain(*targs)
+    if case == "step 4":
+        assert idx.occk_lattice.shape[1] == 512 and 0 < trips
+    elif case == "T = 0":
+        assert T == 0 and trips == 0
+    elif case.startswith("p = 0"):
+        assert p == 0 and trips == T and bool(((~unf) & (rem == 0)).any())
+    else:
+        assert min_trips < trips < T, (trips, T)
+
+
+def test_exit_trip_matches_the_reference_loop():
+    """exit_trip (the histogram of each lane's exit) against a loop over
+    bwtpu's while_loop condition on random exits."""
+    rng = np.random.default_rng(5)
+    for _ in range(300):
+        T = int(rng.integers(0, 25))
+        B = int(rng.integers(0, 400))
+        leave = rng.integers(0, T + 1, size=B)
+        if rng.random() < 0.5:  # most lanes leave early, as on a genome
+            leave = np.minimum(leave, rng.integers(0, 3, size=B))
+        min_trips = int(rng.integers(0, T + 3))
+        cap = int(rng.integers(0, B + 2))
+        t = 0
+        while t < T and ((leave > t).sum() > cap or t < min_trips):
+            t += 1
+        got = searchk.exit_trip(_t(leave.astype(np.int32)), T, min_trips, cap)
+        assert got.dtype == torch.int32 and got.dim() == 0
+        assert int(got) == t, (T, B, min_trips, cap)
+
+
+def test_search_multistep_takes_the_plain_version_on_cpu(genomes):
+    """On CPU tensors the wrapper runs search_multistep_plain and launches
+    nothing; a tensor on another device raises."""
+    idx, _, rw, ab = genomes["tandem"]
+    args = (_t(idx.search_lattice), _t(idx.occk_lattice), _t(idx.occk_invalid), _t(idx.C),
+            idx.dollar_row, _t(idx.kmer_tables[6]), _t(rw), _t(ab), 0, 60, 6, 3, 16, 1, 1, 0)
+    before = searchk.search_multistep.launches
+    got = searchk.search_multistep(*args)
+    for a, b in zip(got, searchk.search_multistep_plain(*args)):
+        _eq(a, b)
+    assert searchk.search_multistep.launches == before
+    assert got[5].dtype == torch.bool and got[6].dtype == torch.int32 and got[6].dim() == 0
+    meta = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a for a in args)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        searchk.search_multistep(*meta)
