@@ -1,14 +1,18 @@
-// Multi-step early-stop backward search with its whole-batch exit, on the
-// device: everything of search_early_stop_packed before its finisher.
+// Multi-step early-stop backward search with its whole-batch exit and the
+// finisher's compaction, on the device: everything of
+// search_early_stop_packed except the finisher's two-record chain
+// (search2.cu, launched next on the compacted lanes).
 //
 // Replaces the jnp program bwtpu/kernels/searchk.py::search_early_stop_packed
 // (one jax.jit with a while_loop): the k-mer start key and table row
 // (prep.kmer_key_packed), the wide phase (common.occ on the two-record
 // lattice), and the multi-step trips on the s-mer lattice
-// (occk_pair_from_record, prep.smer_codes_packed), up to the finisher's
-// input. Record layouts: bwtpu/index.py (search lattice: occ.cuh; s-mer
-// lattice: OCCK_BLOCK / OCCK_WIDTH, R rows a record, words 0..A-1 the
-// folds, words A..A+R/4-1 the rows' s-mer codes, one byte each).
+// (occk_pair_from_record, prep.smer_codes_packed); and of its finisher
+// bwtpu/kernels/search2.py::_fixup_stragglers_packed the compaction
+// (compact) and the capacity cut (over_lane). Record layouts:
+// bwtpu/index.py (search lattice: occ.cuh; s-mer lattice: OCCK_BLOCK /
+// OCCK_WIDTH, R rows a record, words 0..A-1 the folds, words A..A+R/4-1
+// the rows' s-mer codes, one byte each).
 //
 // The reference tests `(t < T) & ((n_pool > cap) | (t < min_trips))` before
 // each trip. A lane's trips depend only on its own row and the index, and
@@ -18,31 +22,54 @@
 // is the first t >= min_trips whose pool #{leave > t} is <= cap, else T.
 // A lane with leave > t* is unfinished in the reference (the finisher
 // restarts it from sp0, ep0 or forces it empty), so its later state is
-// never read: exit_kernel finds t* from the histogram and ORs leave > t*
-// into each lane's unfinished flag, with no host sync and no second pass.
+// never read. exit_kernel finds t* from the histogram, ORs leave > t* into
+// each lane's unfinished flag, and compacts the unfinished lanes in lane
+// order into sel[0, min(total, cap)) with a single-pass scan (decoupled
+// look-back between CTAs, each CTA's tile taken from a ticket counter so
+// that none waits on a CTA that has not started); an unfinished lane at
+// position >= cap is forced empty and flagged (over_lane), as the
+// reference's cut `cumsum(unfinished) > cap` does after its finisher, which
+// never reads such a lane. Nothing syncs with the host.
 //
 // What bounds it on an H100: a lane's trips are a chain of dependent loads
 // of a 512 B (step 3) or 2 KB (step 4) record, each from a random block of
-// a lattice that sits in L2 at bacterial scale (9.3 MB at E. coli). So one
-// group of R / 16 threads (16 for step 3, 32 for step 4) owns a lane: each
-// thread loads one 16 B piece of the record's code bytes (pieces wholly at
-// or past the interval's end are not loaded), compares 4 bytes at a time
-// with __vcmpeq4, masks by the interval's two ends, and a shuffle sum over
-// the group gives both counts; the fold word is one broadcast load. The
-// lane's pattern bits are read a word at a time as the trips walk down the
-// row (two words of each plane held in registers). Stopped lanes stop: no
-// dead gathers of record 0 as on the TPU. Each CTA sums its lanes' `leave`
-// in shared memory before one atomic per bin.
-// Measured on an H100 (PERF.md, chip_smoke.py phase 3): 0.019 ms for one
-// block's 32,768 lanes (k = 0 and each k = 2 seed), ~9x its bytes bound;
-// the plain torch version in the same order takes 20-70 ms.
+// a lattice that sits in L2 at bacterial scale (9.3 MB at E. coli; ~93 MB,
+// past L2, for one shard of a chr21-length genome). The bytes are few and
+// the longest lane's chain sets the time. So a trip is kept short:
+//   - a group of G threads owns a lane (G a template parameter, one per
+//     step, SEARCHK_G3 / SEARCHK_G4); each thread loads its R / G code bytes
+//     of the record as 16 B pieces (pieces wholly at or past the clamped
+//     interval end are not loaded), issued together with the fold word's
+//     broadcast load, compares 4 bytes at a time with __vcmpeq4 and masks
+//     by the interval's two ends;
+//   - both counts (each <= R <= 512) travel in one word, cs | ce << 16, so
+//     the group's shuffle tree is log2(G) shuffles a trip;
+//   - the lane's s-mer codes and ambiguity flags are decoded by the group
+//     together into shared memory before the trips, kChunk trips at a time
+//     (one entry a trip), so a trip reads its code with one shared load and
+//     no branch on the row's words;
+//   - no register array is indexed at run time (it would live in local
+//     memory).
+// Stopped lanes stop: no dead gathers of record 0 as on the TPU. Each CTA
+// sums its lanes' `leave` in shared memory before one atomic per bin.
+// Measured on an H100: PERF.md §6 (chip_smoke.py phase 3,
+// scripts/torch_searchk_ab.py).
 //
 // Index ranges: sp stays in [0, n] on pool lanes, so sp >> log2(R) is at
 // most the terminator record n_blocksK; a record's counted window is
 // clamped at R rows (ep - base may exceed R: that lane straggles, and its
 // sp/ep, garbage as in the reference, are replaced by the finisher).
 
+#include <type_traits>
+
 #include "occ.cuh"
+
+#ifndef SEARCHK_G3
+#define SEARCHK_G3 2
+#endif
+#ifndef SEARCHK_G4
+#define SEARCHK_G4 4
+#endif
 
 namespace {
 
@@ -50,6 +77,12 @@ using namespace bwtpu;
 
 constexpr int kCta = 256;         // threads per CTA of the search kernel
 constexpr int kSmemBins = 8192;   // histogram bins kept in shared memory
+constexpr int kChunk = 4;         // trips whose codes are staged at once
+constexpr int kExitItems = 8;     // lanes per thread of the exit kernel
+constexpr int kExitTile = 256 * kExitItems;  // lanes per exit CTA
+constexpr unsigned kAgg = 1u << 30;     // look-back word: aggregate only
+constexpr unsigned kPrefix = 2u << 30;  // look-back word: inclusive prefix
+constexpr unsigned kValue = kAgg - 1u;
 
 // `nbits` (<= 26) bits from base slot j of a 2-bit packed row
 __device__ __forceinline__ uint32_t extract_bits(const int* row, int j, int nbits) {
@@ -71,43 +104,6 @@ __device__ __forceinline__ uint32_t low_bytes(int n) {
   return n <= 0 ? 0u : n >= 4 ? 0x01010101u : 0x01010101u & ((1u << (8 * n)) - 1u);
 }
 
-// s-mer codes of a lane's row, walked down the row group by group: words
-// wi and wi + 1 of the bases and of the ambiguity bits in registers
-struct SmerCursor {
-  const int* w;
-  const int* a;
-  int W;
-  int wi = -2;
-  uint32_t w0 = 0, w1 = 0, a0 = 0, a1 = 0;
-
-  __device__ __forceinline__ SmerCursor(const int* words, const int* amb, int nw)
-      : w(words), a(amb), W(nw) {}
-
-  // code (first base most significant) and ambiguity of bases [j, j + S)
-  template <int S>
-  __device__ __forceinline__ void get(int j, int& code, bool& amb) {
-    const int want = j >> 4;
-    if (want == wi - 1) {  // the walk moved down one word
-      w1 = w0;
-      a1 = a0;
-      w0 = (uint32_t)__ldg(w + want);
-      a0 = (uint32_t)__ldg(a + want);
-    } else if (want != wi) {
-      w0 = (uint32_t)__ldg(w + want);
-      a0 = (uint32_t)__ldg(a + want);
-      w1 = want + 1 < W ? (uint32_t)__ldg(w + want + 1) : 0u;
-      a1 = want + 1 < W ? (uint32_t)__ldg(a + want + 1) : 0u;
-    }
-    wi = want;
-    const int b = 2 * (j & 15);
-    const uint32_t m = (1u << (2 * S)) - 1u;
-    const uint32_t v = (uint32_t)(((((uint64_t)w1) << 32) | w0) >> b) & m;
-    const uint32_t va = (uint32_t)(((((uint64_t)a1) << 32) | a0) >> b) & m;
-    code = msb_first(v, S);
-    amb = va != 0u;
-  }
-};
-
 // C[c + 1] + Occ(c, i) from the search lattice's record of block i >> 7
 __device__ __forceinline__ int lf(const int4* __restrict__ lattice, const int (&c14)[4],
                                   int dollar_row, int c, int i) {
@@ -119,7 +115,27 @@ __device__ __forceinline__ int lf(const int4* __restrict__ lattice, const int (&
          dollar_corr(c, dollar_row, j, i);
 }
 
+// one staged trip: the s-mer code, with kAmb set when a base is ambiguous
 template <int STEP>
+struct Staged {
+  using type = typename std::conditional<STEP == 3, uint8_t, uint16_t>::type;
+  static constexpr int kAmb = STEP == 3 ? 0x80 : 0x100;
+};
+
+// The group's threads decode trips [t0, t0 + kChunk) (those below T) of
+// a lane into its staged codes: trip t reads bases base0 + STEP * (T-1-t).
+template <int STEP, int G>
+__device__ __forceinline__ void stage(typename Staged<STEP>::type* codes, const int* row,
+                                      const int* arow, int base0, int T, int t0, int gi) {
+  for (int u = gi; u < kChunk && t0 + u < T; u += G) {
+    const int j = base0 + STEP * (T - 1 - (t0 + u));
+    const uint32_t a = extract_bits(arow, j, 2 * STEP), w = extract_bits(row, j, 2 * STEP);
+    codes[u] = (typename Staged<STEP>::type)(msb_first(w, STEP) |
+                                             (a != 0u ? Staged<STEP>::kAmb : 0));
+  }
+}
+
+template <int STEP, int G>
 __global__ void __launch_bounds__(kCta) multistep_kernel(
     const int4* __restrict__ lattice, const int* __restrict__ latk,
     const int* __restrict__ latk_inv, const int* __restrict__ C, int dollar_row,
@@ -133,28 +149,42 @@ __global__ void __launch_bounds__(kCta) multistep_kernel(
   constexpr int LOG2R = STEP == 3 ? 8 : 9;    // R rows a record
   constexpr int R = 1 << LOG2R;
   constexpr int WK = STEP == 3 ? 128 : 512;   // record words
-  constexpr int G = R / 16;                   // threads a lane: one 16 B piece each
+  constexpr int LANES = kCta / G;             // lanes a CTA
+  constexpr int PIECES = R / 16 / G;          // 16 B code pieces a thread
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0 && PIECES >= 1, "group size");
+  using code_t = typename Staged<STEP>::type;
+  constexpr int AMB = Staged<STEP>::kAmb;
   extern __shared__ int s_hist[];
+  __shared__ code_t s_codes[LANES][kChunk];
   const bool smem = T + 1 <= kSmemBins;
   if (smem)
     for (int i = threadIdx.x; i <= T; i += blockDim.x) s_hist[i] = 0;
   __syncthreads();
 
   const int gi = threadIdx.x % G;
-  const unsigned gmask = G == 32 ? 0xFFFFFFFFu : (0xFFFFu << (threadIdx.x & 16));
-  const int lane = (int)((blockIdx.x * blockDim.x + threadIdx.x) / G);
+  const int grp = threadIdx.x / G;
+  const unsigned gmask =
+      G == 32 ? 0xFFFFFFFFu : (((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1)));
+  const int lane = blockIdx.x * LANES + grp;
   if (lane < B) {
     const int* row = words + (size_t)lane * W;
     const int* arow = amb_bits + (size_t)lane * W;
-    // prologue: the k-mer start interval of bases [off + L - d, off + L)
+    // prologue: the k-mer start interval of bases [off + L - d, off + L);
+    // both planes' words are loaded together, and the first trips' codes
+    // are staged (the same rows' words) while the table entry is in flight
     const int chain = L - d;
     const int j0 = off + chain;
+    const uint32_t ka = extract_bits(arow, j0, 2 * d), kw = extract_bits(row, j0, 2 * d);
     int sp = 0, ep = 0;
-    if (extract_bits(arow, j0, 2 * d) == 0u) {
-      const int key = msb_first(extract_bits(row, j0, 2 * d), d);
+    if (ka == 0u) {
+      const int key = msb_first(kw, d);
       sp = __ldg(kmer_table + 2 * key);
       ep = __ldg(kmer_table + 2 * key + 1);
     }
+    const int base0 = off + (chain - wide_steps) % STEP;
+    code_t* codes = s_codes[grp];
+    stage<STEP, G>(codes, row, arow, base0, T, 0, gi);
+    __syncwarp(gmask);
     const int sp0 = sp, ep0 = ep;
     int rem = chain;
     bool stopped = min_trips > 0 ? ep - sp <= 0 : ep - sp <= stop_width;
@@ -180,45 +210,55 @@ __global__ void __launch_bounds__(kCta) multistep_kernel(
     // multi-step trips t = 0 .. T-1 on groups g = T-1-t, base0 + STEP * g
     int leave = stopped ? 0 : T;
     if (!stopped) {
-      const int base0 = off + (chain - wide_steps) % STEP;
-      SmerCursor cur(row, arow, W);
       int inv[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) inv[q] = __ldg(latk_inv + q);
       for (int t = 0; t < T; ++t) {
-        int code;
-        bool amb;
-        cur.get<STEP>(base0 + STEP * (T - 1 - t), code, amb);
+        const int tc = t % kChunk;
+        if (tc == 0 && t > 0) {  // the group decodes the next kChunk trips' codes
+          __syncwarp(gmask);
+          stage<STEP, G>(codes, row, arow, base0, T, t, gi);
+          __syncwarp(gmask);
+        }
+        const int cv = codes[tc];
         const int blk = sp >> LOG2R;
         const int base = blk << LOG2R;
         const int msp = sp - base, mep = ep - base;
         const bool sK = mep > R;
-        if (amb) {
+        if (cv & AMB) {
           sp = 0;
           ep = 0;
         } else {
+          const int code = cv;
           const int* rec = latk + (size_t)blk * WK;
-          const int fold = __ldg(rec + code);
           const int lim = mep < R ? mep : R;
-          int cs = 0, ce = 0;
-          if (16 * gi < lim) {
-            const int4 piece = __ldg(reinterpret_cast<const int4*>(rec + A) + gi);
-            const uint32_t pat = (uint32_t)code * 0x01010101u;
-            const uint32_t pw[4] = {(uint32_t)piece.x, (uint32_t)piece.y, (uint32_t)piece.z,
-                                    (uint32_t)piece.w};
+          const int4* pieces = reinterpret_cast<const int4*>(rec + A);
+          const int fold = __ldg(rec + code);
+          int4 pc[PIECES];
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const uint32_t eq = __vcmpeq4(pw[k], pat) & 0x01010101u;
-              const int pos = 16 * gi + 4 * k;
-              cs += __popc(eq & low_bytes(msp - pos));
-              ce += __popc(eq & low_bytes(lim - pos));
+          for (int k = 0; k < PIECES; ++k) {
+            const int p = gi + G * k;
+            pc[k] = 16 * p < lim ? __ldg(pieces + p) : make_int4(0, 0, 0, 0);
+          }
+          const uint32_t pat = (uint32_t)code * 0x01010101u;
+          int cs = 0, ce = 0;
+#pragma unroll
+          for (int k = 0; k < PIECES; ++k) {
+            const int pos = 16 * (gi + G * k);
+            const uint32_t pw[4] = {(uint32_t)pc[k].x, (uint32_t)pc[k].y, (uint32_t)pc[k].z,
+                                    (uint32_t)pc[k].w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const uint32_t eq = __vcmpeq4(pw[q], pat) & 0x01010101u;
+              cs += __popc(eq & low_bytes(msp - pos - 4 * q));
+              ce += __popc(eq & low_bytes(lim - pos - 4 * q));
             }
           }
+          int both = cs | (ce << 16);  // each count <= R <= 512
 #pragma unroll
-          for (int o = G / 2; o > 0; o >>= 1) {
-            cs += __shfl_xor_sync(gmask, cs, o, G);
-            ce += __shfl_xor_sync(gmask, ce, o, G);
-          }
+          for (int o = G / 2; o > 0; o >>= 1) both += __shfl_xor_sync(gmask, both, o, G);
+          cs = both & 0xFFFF;
+          ce = both >> 16;
           if (code == 0) {  // rows with SA[r] < STEP store code 0 outside the folds
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
@@ -261,15 +301,33 @@ __global__ void __launch_bounds__(kCta) multistep_kernel(
   }
 }
 
+__device__ __forceinline__ unsigned load_volatile(const unsigned* p) {
+  return *reinterpret_cast<const volatile unsigned*>(p);
+}
+
 // The exit trip from the histogram (every CTA's first warp finds it: the
 // pool at trip t is B minus the lanes with leave <= t), then each lane's
-// unfinished flag ORs in leave > t*, and its rem becomes 0 where set.
-__global__ void exit_kernel(const int* __restrict__ hist, int T, int min_trips, int cap,
-                            int B, const int* __restrict__ leave, bool* __restrict__ unfinished,
-                            int* __restrict__ rem, int* __restrict__ trips) {
-  __shared__ int s_exit;
-  if (threadIdx.x < 32) {
-    const int l = threadIdx.x;
+// unfinished flag ORs in leave > t* (its rem becomes 0), and the unfinished
+// lanes are compacted in lane order. A CTA's tile is its ticket (taken by
+// its second warp while the first scans the histogram): kExitTile lanes,
+// kExitItems consecutive lanes a thread, loaded together; one block scan
+// of the threads' counts; the tile's count is published at once (kAgg) and
+// its inclusive prefix (kPrefix) once its predecessors' are known, read by
+// one warp 32 tiles at a time. Position < cap: sel[position] = lane; else
+// the lane is forced empty (sp = ep = 0) and over_lane = 1. The last tile
+// writes the total (n_unf) and count = min(total, cap); tile 0 writes
+// trips.
+__global__ void __launch_bounds__(256) exit_kernel(
+    const int* __restrict__ hist, int T, int min_trips, int cap, int B,
+    const int* __restrict__ leave, bool* __restrict__ unfinished, int* __restrict__ rem,
+    int* __restrict__ sp, int* __restrict__ ep, int* __restrict__ over_lane,
+    int* __restrict__ trips, int* __restrict__ count, int* __restrict__ n_unf,
+    int* __restrict__ ticket, unsigned* __restrict__ flags, int* __restrict__ sel, int nb) {
+  __shared__ int s_exit, s_tile, s_prefix;
+  __shared__ int s_warp[8];
+  const int l = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 32) s_tile = atomicAdd(ticket, 1);
+  if (warp == 0) {
     int carry = 0, found = T;
     for (int c0 = 0; c0 <= T; c0 += 32) {
       const int t = c0 + l;
@@ -290,48 +348,156 @@ __global__ void exit_kernel(const int* __restrict__ hist, int T, int min_trips, 
     if (l == 0) s_exit = found;
   }
   __syncthreads();
-  const int ts = s_exit;
-  if (blockIdx.x == 0 && threadIdx.x == 0) *trips = ts;
-  const int i = (int)(blockIdx.x * blockDim.x + threadIdx.x);
-  if (i < B && (unfinished[i] || leave[i] > ts)) {
-    unfinished[i] = true;
-    rem[i] = 0;
+  const int ts = s_exit, tile = s_tile;
+  const int first = tile * kExitTile + (int)threadIdx.x * kExitItems;
+
+  // this thread's lanes [first, first + kExitItems): flags and count
+  bool f[kExitItems];
+  int own = 0;
+  if (first + kExitItems <= B) {
+    const uint2 u = *reinterpret_cast<const uint2*>(unfinished + first);
+    const int4 v0 = *reinterpret_cast<const int4*>(leave + first);
+    const int4 v1 = *reinterpret_cast<const int4*>(leave + first + 4);
+    const int lv[kExitItems] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+    for (int r = 0; r < kExitItems; ++r)
+      f[r] = ((r < 4 ? u.x >> (8 * r) : u.y >> (8 * (r - 4))) & 0xFFu) != 0u || lv[r] > ts;
+  } else {
+#pragma unroll
+    for (int r = 0; r < kExitItems; ++r) {
+      const int i = first + r;
+      f[r] = i < B && (unfinished[i] || leave[i] > ts);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kExitItems; ++r) own += f[r];
+
+  // the threads' exclusive prefix within the tile, and the tile's count
+  int incl = own;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+    if (l >= o) incl += n;
+  }
+  if (l == 31) s_warp[warp] = incl;
+  __syncthreads();
+  int below = 0, run = 0;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    const int c = s_warp[w];
+    below += w < warp ? c : 0;
+    run += c;
+  }
+  const int mine = below + incl - own;
+
+  if (warp == 0) {  // decoupled look-back
+    int excl = 0;
+    if (l == 0) atomicExch(&flags[tile], (tile == 0 ? kPrefix : kAgg) | (unsigned)run);
+    for (int top = tile - 1; top >= 0; top -= 32) {
+      const int j = top - l;
+      unsigned v;
+      do {
+        v = j >= 0 ? load_volatile(flags + j) : kPrefix;
+      } while (__any_sync(0xFFFFFFFFu, (v >> 30) == 0u));
+      const unsigned pre = __ballot_sync(0xFFFFFFFFu, (v >> 30) == 2u);
+      const int stop = pre ? __ffs(pre) - 1 : 32;
+      int add = l <= stop ? (int)(v & kValue) : 0;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) add += __shfl_xor_sync(0xFFFFFFFFu, add, o);
+      excl += add;
+      if (pre) break;
+    }
+    if (l == 0) {
+      if (tile > 0) atomicExch(&flags[tile], kPrefix | (unsigned)(excl + run));
+      s_prefix = excl;
+    }
+  }
+  __syncthreads();
+  int p = s_prefix + mine;
+  int over[kExitItems];
+#pragma unroll
+  for (int r = 0; r < kExitItems; ++r) {
+    const int i = first + r;
+    over[r] = 0;
+    if (f[r]) {  // f[r] implies i < B
+      unfinished[i] = true;
+      rem[i] = 0;
+      if (p < cap) {
+        sel[p] = i;
+      } else {
+        sp[i] = 0;
+        ep[i] = 0;
+        over[r] = 1;
+      }
+      ++p;
+    }
+  }
+  if (first + kExitItems <= B) {  // two 16 B stores
+    *reinterpret_cast<int4*>(over_lane + first) = make_int4(over[0], over[1], over[2], over[3]);
+    *reinterpret_cast<int4*>(over_lane + first + 4) =
+        make_int4(over[4], over[5], over[6], over[7]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < kExitItems; ++r)
+      if (first + r < B) over_lane[first + r] = over[r];
+  }
+  if (threadIdx.x == 0) {
+    if (tile == nb - 1) {
+      const int total = s_prefix + run;
+      *n_unf = total;
+      *count = total < cap ? total : cap;
+    }
+    if (tile == 0) *trips = ts;
   }
 }
 
 }  // namespace
 
-// Both kernels on `stream`: the search over B lanes (one group of R / 16
-// threads each), then the exit over the histogram `hist` (T + 1 zeroed
-// bins). Outputs: sp0, ep0, sp, ep, rem, leave (int32[B]), unfinished
-// (bool[B]), trips (int32 scalar).
+// Lanes per CTA of the exit kernel: the wrapper sizes the workspace's
+// look-back words by it.
+extern "C" int bwtpu_searchk_exit_tile() { return kExitTile; }
+
+// Everything on `stream`: one memset of the int32 workspace `ws` (ws_words
+// words: hist[T + 1], trips, count, n_unf, the exit tickets, one look-back
+// word per exit CTA, sel[cap]), the search over B lanes (one group of G
+// threads each), then the exit over the histogram. Outputs: sp0, ep0, sp,
+// ep, rem, leave, over_lane (int32[B]), unfinished (bool[B]), and in ws
+// trips, count, n_unf (int32 scalars) and sel (int32[cap], 0 past count).
 extern "C" int bwtpu_search_multistep(
     const void* lattice, const void* latk, const void* latk_inv, const void* C,
     int dollar_row, const void* kmer_table, const void* words, const void* amb_bits, int B,
     int W, int off, int L, int d, int step, int stop_width, int min_trips, int wide_steps,
     int T, int cap, void* sp0, void* ep0, void* sp, void* ep, void* rem, void* leave,
-    void* unfinished, void* hist, void* trips, void* stream) {
+    void* unfinished, void* over_lane, void* ws, int ws_words, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const int nb = B > 0 ? (B + kExitTile - 1) / kExitTile : 1;
+  if (ws_words != T + 5 + nb + cap || B >= (int)kAgg || cap < 0)
+    return (int)cudaErrorInvalidValue;
+  int* w = (int*)ws;
+  cudaError_t err = cudaMemsetAsync(ws, 0, (size_t)ws_words * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
   const size_t smem = T + 1 <= kSmemBins ? (size_t)(T + 1) * sizeof(int) : 0;
   if (B > 0) {
-    const int lanes_per_cta = kCta / (step == 3 ? 16 : 32);
+    const int G = step == 3 ? SEARCHK_G3 : SEARCHK_G4;
+    const int lanes_per_cta = kCta / G;
     const int grid = (B + lanes_per_cta - 1) / lanes_per_cta;
 #define BWTPU_MULTISTEP_ARGS                                                             \
   (const int4*)lattice, (const int*)latk, (const int*)latk_inv, (const int*)C, dollar_row, \
       (const int*)kmer_table, (const int*)words, (const int*)amb_bits, B, W, off, L, d,     \
       stop_width, min_trips, wide_steps, T, (int*)sp0, (int*)ep0, (int*)sp, (int*)ep,       \
-      (int*)rem, (int*)leave, (bool*)unfinished, (int*)hist
+      (int*)rem, (int*)leave, (bool*)unfinished, w
     if (step == 3)
-      multistep_kernel<3><<<grid, kCta, smem, s>>>(BWTPU_MULTISTEP_ARGS);
+      multistep_kernel<3, SEARCHK_G3><<<grid, kCta, smem, s>>>(BWTPU_MULTISTEP_ARGS);
     else
-      multistep_kernel<4><<<grid, kCta, smem, s>>>(BWTPU_MULTISTEP_ARGS);
+      multistep_kernel<4, SEARCHK_G4><<<grid, kCta, smem, s>>>(BWTPU_MULTISTEP_ARGS);
 #undef BWTPU_MULTISTEP_ARGS
-    const cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  exit_kernel<<<B > 0 ? (B + 255) / 256 : 1, 256, 0, s>>>(
-      (const int*)hist, T, min_trips, cap, B, (const int*)leave, (bool*)unfinished,
-      (int*)rem, (int*)trips);
+  exit_kernel<<<nb, 256, 0, s>>>(w, T, min_trips, cap, B, (const int*)leave,
+                                 (bool*)unfinished, (int*)rem, (int*)sp, (int*)ep,
+                                 (int*)over_lane, w + T + 1, w + T + 2, w + T + 3, w + T + 4,
+                                 (unsigned*)(w + T + 5), w + T + 5 + nb, nb);
   return (int)cudaGetLastError();
 }
 

@@ -17,7 +17,7 @@ def compact(valid: torch.Tensor, capacity: int):
     """
     v = valid.to(torch.int32)
     pos = torch.cumsum(v, 0, dtype=torch.int32) - v
-    total = pos[-1] + v[-1]
+    total = v.sum(dtype=torch.int32)  # 0 for an empty mask
     count = torch.clamp(total, max=capacity)
     overflow = torch.clamp(total - capacity, min=0)
     slot = torch.where(valid & (pos < capacity), pos, capacity)  # spill slot

@@ -10,10 +10,10 @@ and the chains built on them, `_search_ra_chain` and `_two_gather_search`.
 Kernel wrappers: `search_chain1` (csrc/search1.cu) and `search_chain2`
 (csrc/search2.cu) launch a kernel on CUDA tensors and run the plain
 chain on CPU tensors; anything else raises, and nothing falls back.
-`backward_search_ra` and both straggler fixups run on them. The
-reference's `lax.cond` on the straggler count has no counterpart: the
-count stays on the device and the kernel's threads past it exit, so the
-fixups do not sync.
+`backward_search_ra` with its straggler fixup, and the packed search's
+finisher (searchk.py), run on them. The reference's `lax.cond` on the
+straggler count has no counterpart: the count stays on the device and
+the kernel's threads past it exit, so the finishers do not sync.
 """
 
 from __future__ import annotations
@@ -251,7 +251,7 @@ def _chain2_entry(packed: bool):
 
 
 # ---------------------------------------------------------------------------
-# backward search over right-aligned patterns, and the straggler fixups
+# backward search over right-aligned patterns, and its straggler fixup
 # ---------------------------------------------------------------------------
 
 
@@ -306,18 +306,6 @@ def _fixup_stragglers(lattice, C, dollar_row: int, ra_codes, ra_amb, lens,
     sel, count, _ = compact(strag, cap)
     search_chain2(lattice, C, dollar_row, Planes(ra_codes, ra_amb, lens), sp0, ep0, sel,
                   count, sp, ep, d)
-    return _force_over(sp, ep, strag, cap)
-
-
-def _fixup_stragglers_packed(lattice, C, dollar_row: int, words, amb_bits,
-                             off: int, slen: int, sp0, ep0, sp, ep, strag,
-                             d: int, cap: int):
-    """_fixup_stragglers for 2-bit packed rows: the chain reads the
-    flagged lanes' bases [off, off+slen) straight from the packed rows.
-    Same (sp, ep, over_lane)."""
-    sel, count, _ = compact(strag, cap)
-    search_chain2(lattice, C, dollar_row, Packed(words, amb_bits, off, slen), sp0, ep0,
-                  sel, count, sp, ep, d)
     return _force_over(sp, ep, strag, cap)
 
 

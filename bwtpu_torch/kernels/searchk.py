@@ -2,12 +2,14 @@
 bwtpu/kernels/searchk.py::occk_pair_from_record, search_early_stop_packed).
 
 `search_early_stop_packed` runs `search_multistep` (the prologue, the
-wide phase and the multi-step trips of every lane, then the whole-batch
-exit) and the straggler finisher after it. `search_multistep` launches
-the hand-written kernel csrc/searchk.cu on CUDA tensors and runs
-`search_multistep_plain` on CPU tensors; anything else raises, and
-nothing falls back. The kernel path never syncs with the host (ROADMAP
-B.1).
+wide phase and the multi-step trips of every lane, the whole-batch exit,
+and the finisher's compaction and capacity cut) and then the finisher's
+two-record chain (`search_chain2`) on the compacted lanes.
+`search_multistep` launches the hand-written kernel csrc/searchk.cu on
+CUDA tensors and runs `search_multistep_plain` on CPU tensors; anything
+else raises, and nothing falls back. The kernel path never syncs with
+the host: one call is a memset, the search kernel, the exit kernel and
+search_chain2.
 
 The reference's while_loop tests `(t < T) & ((n_pool > cap) | (t <
 min_trips))` before every trip, so the whole batch leaves at one trip.
@@ -19,6 +21,8 @@ reference leaves it; a lane with leave > t* was in the reference's pool
 at its exit, so it is unfinished there and the finisher restarts it
 from (sp0, ep0) or forces it empty: its own later state is never read.
 So one pass gives the reference's outputs, trips and n_unf included.
+The finisher's compaction (`compact`) and its cut (`_force_over`) need
+only the unfinished flags, so they run before its chain, in the exit.
 """
 
 from __future__ import annotations
@@ -28,8 +32,8 @@ import ctypes
 import torch
 
 from bwtpu_torch.index import OCCK_BLOCK, OCCK_WIDTH
-from bwtpu_torch.kernels import _build, common, prep
-from bwtpu_torch.kernels.search2 import _fixup_stragglers_packed
+from bwtpu_torch.kernels import _build, common, prep, search2
+from bwtpu_torch.kernels.compact import compact
 
 
 def occk_pair_from_record(rec, t, sp, ep, inv, A: int, R: int):
@@ -84,14 +88,15 @@ def exit_trip(leave, T: int, min_trips: int, cap: int):
     return torch.argmax(ok.to(torch.int32)).to(torch.int32)
 
 
-def search_multistep_plain(lattice, latk, latk_inv, C, dollar_row: int, kmer_table,
-                           words, amb_bits, off: int, L: int, d: int, step: int,
-                           stop_width: int, min_trips: int = 0, cap_scale: int = 1,
-                           wide_steps: int = 0):
-    """Plain version of search_multistep, in the kernel's order: every
-    lane runs masked trips until it leaves the pool (no exit test), then
-    `exit_trip` and the unfinished rule. Same outputs as the kernel."""
-    T, p, cap = _shape(L, d, step, wide_steps, words.shape[0], cap_scale)
+def lanes_plain(lattice, latk, latk_inv, C, dollar_row: int, kmer_table, words,
+                amb_bits, off: int, L: int, d: int, step: int, stop_width: int,
+                min_trips: int = 0, cap_scale: int = 1, wide_steps: int = 0):
+    """Every lane of search_multistep_plain to its own exit, with masked
+    trips and no exit test. Returns (sp0, ep0, sp, ep, rem, own bool[B],
+    leave int32[B]): own flags the lanes unfinished by their own state
+    (still wide with bases left, or straggled), leave the trip count at
+    which each lane left the pool (T if never)."""
+    T, p, _ = _shape(L, d, step, wide_steps, words.shape[0], cap_scale)
     A = 4**step
     R = OCCK_BLOCK[step]
     B = words.shape[0]
@@ -144,31 +149,54 @@ def search_multistep_plain(lattice, latk, latk_inv, C, dollar_row: int, kmer_tab
             may_stop = (width <= stop_width) & ((t + 1 >= min_trips) | (width <= 0))
             stopped = stopped | (active & ~sK & may_stop)
             leave = torch.where(active & (stopped | strag), t + 1, leave)
+    return sp0, ep0, sp, ep, rem, (~stopped & (rem > 0)) | strag, leave
 
+
+def search_multistep_plain(lattice, latk, latk_inv, C, dollar_row: int, kmer_table,
+                           words, amb_bits, off: int, L: int, d: int, step: int,
+                           stop_width: int, min_trips: int = 0, cap_scale: int = 1,
+                           wide_steps: int = 0):
+    """Plain version of search_multistep, in the kernel's order:
+    `lanes_plain`, then `exit_trip`, the unfinished rule, `compact` and
+    `_force_over`. Same outputs as the kernel."""
+    T, _, cap = _shape(L, d, step, wide_steps, words.shape[0], cap_scale)
+    sp0, ep0, sp, ep, rem, own, leave = lanes_plain(
+        lattice, latk, latk_inv, C, dollar_row, kmer_table, words, amb_bits, off, L, d, step,
+        stop_width, min_trips, cap_scale, wide_steps)
     trips = exit_trip(leave, T, min_trips, cap)
-    unfinished = (~stopped & (rem > 0)) | strag | (leave > trips)
+    unfinished = own | (leave > trips)
     rem = torch.where(unfinished, 0, rem)
-    return sp0, ep0, sp, ep, rem, unfinished, trips
+    sel, count, _ = compact(unfinished, cap)
+    sp, ep, over_lane = search2._force_over(sp, ep, unfinished, cap)
+    return (sp0, ep0, sp, ep, rem, unfinished, trips, sel, count, over_lane,
+            unfinished.sum(dtype=torch.int32))
 
 
 def search_multistep(lattice, latk, latk_inv, C, dollar_row: int, kmer_table, words,
                      amb_bits, off: int, L: int, d: int, step: int, stop_width: int,
                      min_trips: int = 0, cap_scale: int = 1, wide_steps: int = 0):
-    """Everything of search_early_stop_packed before its finisher, for
-    the pattern bases [off, off+L) of each 2-bit packed row (int32[B, W]
-    words and ambiguity bits). Returns (sp0, ep0, sp, ep, rem, unfinished
-    bool[B], trips int32 0-dim): the start intervals, each lane's interval
-    and remaining bases (0 on unfinished lanes), the lanes the finisher
-    must run, and the reference's multi-step trips. The CUDA kernel on
-    CUDA tensors, `search_multistep_plain` on CPU tensors, else an error;
-    the two are equal on every output.
+    """Everything of search_early_stop_packed but the finisher's chain,
+    for the pattern bases [off, off+L) of each 2-bit packed row (int32[B,
+    W] words and ambiguity bits). Returns (sp0, ep0, sp, ep, rem,
+    unfinished bool[B], trips, sel int32[cap], count, over_lane int32[B],
+    n_unf): the start intervals; each lane's interval (0, 0 where
+    over_lane) and remaining bases (0 on unfinished lanes); the lanes the
+    finisher must run, compacted in lane order (`compact`'s sel and
+    count); the unfinished lanes past the finisher's capacity, forced
+    empty (`_force_over`); the reference's multi-step trips and the number
+    of unfinished lanes (0-dim int32). The CUDA kernel on CUDA tensors,
+    `search_multistep_plain` on CPU tensors, else an error; the two are
+    equal on every output.
 
     The kernel (csrc/searchk.cu) replaces the prologue, wide phase and
-    while_loop of bwtpu/kernels/searchk.py::search_early_stop_packed:
-    one group of R / 16 threads per lane runs the lane's trips, a record's
-    code bytes counted 16 at a time per thread; each lane adds its
-    `leave` to a histogram, and a second kernel finds the exit trip from
-    it and applies the unfinished rule, all on the device."""
+    while_loop of bwtpu/kernels/searchk.py::search_early_stop_packed and
+    the compaction and cut of its finisher: a memset of one int32
+    workspace (histogram, scalars, look-back words, sel), the search (a
+    group of G threads per lane runs the lane's trips, each thread
+    counting its R / G code bytes of a record; each lane adds its `leave`
+    to the histogram), then an exit kernel that finds the exit trip, sets
+    the unfinished flags and compacts them with a single-pass scan, all on
+    the device."""
     if not _build.on_cuda("search_multistep", words):
         return search_multistep_plain(lattice, latk, latk_inv, C, dollar_row, kmer_table,
                                       words, amb_bits, off, L, d, step, stop_width,
@@ -191,42 +219,60 @@ def search_multistep(lattice, latk, latk_inv, C, dollar_row: int, kmer_table, wo
         raise ValueError("search_multistep: packed rows, slice and d disagree")
     if lattice.data_ptr() % 16 or latk.data_ptr() % 16:
         raise ValueError("search_multistep: lattice and latk must be 16-byte aligned")
-    out = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(6)]
-    sp0, ep0, sp, ep, rem, leave = out
+    lib, f = _multistep_entry()
+    nb = max(1, -(-B // f.exit_tile))  # exit CTAs: one look-back word each
+    ws = torch.empty(T + 5 + nb + cap, dtype=torch.int32, device=dev)
+    out = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(7)]
+    sp0, ep0, sp, ep, rem, leave, over_lane = out
     unfinished = torch.empty(B, dtype=torch.bool, device=dev)
-    hist = torch.zeros(T + 1, dtype=torch.int32, device=dev)
-    trips = torch.empty((), dtype=torch.int32, device=dev)
-    lib = _build.library("searchk")
-    f = lib.bwtpu_search_multistep
-    if f.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        f.restype = i
-        f.argtypes = [p, p, p, p, i, p, p, p] + [i] * 11 + [p] * 10
     rc = f(lattice.data_ptr(), latk.data_ptr(), latk_inv.data_ptr(), C.data_ptr(),
            int(dollar_row), kmer_table.data_ptr(), words.data_ptr(), amb_bits.data_ptr(),
            B, W, off, L, d, step, stop_width, min_trips, wide_steps, T, cap,
-           *(t.data_ptr() for t in out), unfinished.data_ptr(), hist.data_ptr(),
-           trips.data_ptr(), _build.stream_of(words))
+           *(t.data_ptr() for t in out[:6]), unfinished.data_ptr(), over_lane.data_ptr(),
+           ws.data_ptr(), ws.numel(), _build.stream_of(words))
     _build.check(lib, rc, "search_multistep")
     _build.count_launch(search_multistep)
-    return sp0, ep0, sp, ep, rem, unfinished, trips
+    return (sp0, ep0, sp, ep, rem, unfinished, ws[T + 1], ws[T + 5 + nb:], ws[T + 2],
+            over_lane, ws[T + 3])
 
 
 search_multistep.launches = 0  # kernel launches since the last reset
 
 
+def _multistep_entry():
+    """(library, entry point) of searchk.cu; the entry point carries the
+    exit kernel's lanes per CTA as `exit_tile`."""
+    lib = _build.library("searchk")
+    f = lib.bwtpu_search_multistep
+    if not hasattr(f, "exit_tile"):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        f.restype = i
+        f.argtypes = [p, p, p, p, i, p, p, p] + [i] * 11 + [p] * 9 + [i, p]
+        lib.bwtpu_searchk_exit_tile.restype = i
+        f.exit_tile = lib.bwtpu_searchk_exit_tile()
+    return lib, f
+
+
+def _finisher(lattice, C, dollar_row: int, words, amb_bits, off: int, L: int, sp0, ep0,
+              sel, count, sp, ep, d: int) -> None:
+    """The finisher's chain: the compacted unfinished lanes sel[:count]
+    restart from (sp0, ep0) on the two-record chain (`search_chain2`),
+    written into sp and ep in place."""
+    search2.search_chain2(lattice, C, dollar_row, search2.Packed(words, amb_bits, off, L),
+                          sp0, ep0, sel, count, sp, ep, d)
+
+
 def _early_stop(multistep, lattice, latk, latk_inv, C, dollar_row, kmer_table, words,
                 amb_bits, off, L, d, step, stop_width, min_trips, cap_scale, wide_steps,
                 with_stats):
-    sp0, ep0, sp, ep, rem, unfinished, trips = multistep(
+    sp0, ep0, sp, ep, rem, _, trips, sel, count, over_lane, n_unf = multistep(
         lattice, latk, latk_inv, C, dollar_row, kmer_table, words, amb_bits, off, L, d,
         step, stop_width, min_trips, cap_scale, wide_steps)
-    cap = _shape(L, d, step, wide_steps, words.shape[0], cap_scale)[2]
-    sp, ep, overflow = _fixup_stragglers_packed(lattice, C, dollar_row, words, amb_bits, off,
-                                                L, sp0, ep0, sp, ep, unfinished, d, cap=cap)
+    _finisher(lattice, C, dollar_row, words, amb_bits, off, L, sp0, ep0, sel, count, sp, ep,
+              d)
     if with_stats:
-        return sp, ep, rem, overflow, trips, unfinished.sum(dtype=torch.int32)
-    return sp, ep, rem, overflow
+        return sp, ep, rem, over_lane, trips, n_unf
+    return sp, ep, rem, over_lane
 
 
 def search_early_stop_packed(lattice, latk, latk_inv, C, dollar_row: int,

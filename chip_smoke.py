@@ -16,9 +16,13 @@ Phases, in order; any failure raises and the exit code is not 0:
      search_multistep, search_chain2, locate_walk and verify_nm on the very
      arguments one block of phase 5's reads hands them (k = 0 and k = 2;
      search_multistep also as the whole search_early_stop_packed against
-     its plain version, on edge calls (step 4, wide phase, min_trips,
-     cap_scale, T = 0) and under sync debug mode "error", with a report of
-     the first syncing op of a whole Engine.dispatch_block; search_chain2
+     its plain version, its floors (the empty call, the lane with the
+     largest exit trip alone) and the operations one whole call puts on
+     the card (<= 4), on edge calls (step 4, wide phase, min_trips,
+     cap_scale, T = 0), at the bench's size (phase 5's reads tiled 4x:
+     1,048,576 lanes, on the sa_rate 1 index) and under sync debug mode
+     "error", with a report of the first syncing op of a whole
+     Engine.dispatch_block; search_chain2
      also on one lane alone, its latency floor), search_chain1 on the
      very arguments one batch of phase 6's reads hands it through
      Engine.dispatch_batch (k = 0 reads and k = 2 seeds, each timed 3x;
@@ -69,7 +73,12 @@ Phases, in order; any failure raises and the exit code is not 0:
      columnar path, brute force on 256 sampled mate-1 reads against a
      single-end pass, no truncated read, search_multistep, locate_walk,
      verify_nm and search_chain2 launched at least once per shard and
-     block;
+     block; then a single-shard `build-index --kmer-d 11` of the same
+     genome (its s-mer lattice larger than L2) and one block of 16,384
+     mate-1 reads through Engine.dispatch_block + finish_block at k = 0
+     and 2: every search_multistep call with wide_steps 1, the first of
+     each k held against its plain version, timed, bounded and floored as
+     in phase 3, and the block's truth;
  11. wide reads: `build-index --read-len 400` of a 1 Mbp random genome,
      4,096 reads of 400 bp at k = 2 through the port CLI (verify_nm's
      run-time-W instance): truth, brute force on 256 sampled reads, the
@@ -241,11 +250,12 @@ def build_sa1_index(tmp: str, fa: str) -> str:
     return idx_dir
 
 
-def phase_kernels(tmp: str, genome: str, fa: str, reads, block_reads):
+def phase_kernels(tmp: str, genome: str, fa: str, reads, p5_reads):
     """Kernel vs plain: edge cases, then the main path's own calls;
     returns the kernel records and the sa_rate 1 index directory.
-    `reads` are the Read-list phase's mixed-length reads, `block_reads`
-    phase 5's first block."""
+    `reads` are the Read-list phase's mixed-length reads, `p5_reads`
+    phase 5's reads (its first block; all of them, tiled, the bench-sized
+    search call)."""
     import numpy as np
     import torch
 
@@ -294,7 +304,8 @@ def phase_kernels(tmp: str, genome: str, fa: str, reads, block_reads):
 
     verify_edges(text_rows, text_len, put, rng)
     wide = verify_wide(idx8, put, rng)
-    records = main_path_kernels(idx8, block_reads)
+    records = main_path_kernels(idx8, p5_reads[:BATCH])
+    records["search_multistep"]["bench"] = multistep_bench(sa1_dir, p5_reads)
     records["verify_nm"].update(wide)
     records.update(search_kernels(idx8, reads[:BATCH], put))
     records["sw_band"] = sw_kernel(idx8, reads[:BATCH])
@@ -536,7 +547,7 @@ def main_path_kernels(idx, block_reads):
         err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
         require(err == 0, f"{name} != plain on the main path's call (k={k}, #{i})")
         if name == "search_multistep":
-            multistep_whole(args, k, i)
+            multistep_whole(args, f"k={k} call {i}")
         targs = fresh_args(name, args)
         mine = sorted(cuda_ms(lambda: kern(*targs)) for _ in range(RUNS))
         ms = mine[RUNS // 2]
@@ -559,6 +570,11 @@ def main_path_kernels(idx, block_reads):
                 records[name]["k2_plain_ms"] = plain_ms
         if name not in records:
             records[name] = rec
+    ms = records["search_multistep"]
+    ms.update(multistep_floor(calls[0]["search_multistep"][0], "k=0"))
+    require(ms["ops_per_call"] is not None, "the profiler saw no device activity of the "
+                                            "k = 0 search_early_stop_packed call")
+    ms["k2_floor"] = multistep_floor(calls[2]["search_multistep"][0], "k=2 seed 0")
     multistep_edges(idx, calls[0]["search_multistep"][0])
     multistep_no_sync(idx, calls[0]["search_multistep"][0], blk)
     return records
@@ -598,7 +614,7 @@ def chain2_floor(kern, args) -> dict:
     return {"one_lane_ms": out["L2"], "one_lane_l1_ms": out["L1"]}
 
 
-def multistep_whole(args, k: int, i: int) -> None:
+def multistep_whole(args, what: str) -> None:
     """One search_multistep call's arguments through the whole
     search_early_stop_packed and through search_early_stop_packed_plain
     (the plain search, the same finisher): every output equal."""
@@ -611,10 +627,111 @@ def multistep_whole(args, k: int, i: int) -> None:
     torch.cuda.synchronize()
     names = ("sp", "ep", "rem", "overflow", "trips", "n_unf")
     bad = [n for n, a, b in zip(names, got, want) if not torch.equal(a, b)]
-    require(not bad, f"search_early_stop_packed != plain (k={k}, call {i}): {bad}")
-    say(f"  search_early_stop_packed k={k} call {i} (off {args[8]}, L {args[9]}, d {args[10]}): "
+    require(not bad, f"search_early_stop_packed != plain ({what}): {bad}")
+    say(f"  search_early_stop_packed {what} (off {args[8]}, L {args[9]}, d {args[10]}): "
         f"{', '.join(names)} equal to the plain version; trips {int(want[4])}, "
         f"n_unf {int(want[5])}, overflow {int(want[3].sum())}")
+
+
+def multistep_floor(args, what: str) -> dict:
+    """search_multistep's floors on a call's arguments: the empty call
+    (stop width 2^30 and min_trips 0: every lane stops at its start
+    interval, so the call is its launches and the prologue), and the lane
+    with the largest exit trip alone (its chain of dependent trips); each
+    against the plain version. Then the operations one
+    search_early_stop_packed call puts on the card (torch.profiler, CUDA
+    activity, over OPS_CALLS calls: the memset, the search, the exit and
+    search_chain2), which must be <= 4; None where no window of three
+    delivered a whole multiple of OPS_CALLS device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bwtpu_torch.kernels import searchk
+
+    leave = searchk.lanes_plain(*args)[6]
+    lane = int(torch.argmax(leave))
+    one = (*args[:6], args[6][lane:lane + 1].contiguous(), args[7][lane:lane + 1].contiguous(),
+           *args[8:])
+    empty = (*args[:12], 1 << 30, 0, *args[14:])
+    out = {}
+    for name, a in (("one_lane", one), ("empty", empty)):
+        got, want = searchk.search_multistep(*a), searchk.search_multistep_plain(*a)
+        torch.cuda.synchronize()
+        require(all(torch.equal(x, y) for x, y in zip(got, want)),
+                f"search_multistep != plain on the {name} call ({what})")
+        out[f"{name}_ms"] = cuda_ms(lambda: searchk.search_multistep(*a))
+    searchk.search_early_stop_packed(*args)
+    torch.cuda.synchronize()
+    ops, seen = None, []
+    for _ in range(3):  # a window the profiler delivered only part of is retried
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(OPS_CALLS):
+                searchk.search_early_stop_packed(*args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        seen.append(len(names))
+        if names and len(names) % OPS_CALLS == 0:
+            ops = len(names) // OPS_CALLS
+            require(ops <= 4, f"search_early_stop_packed ({what}) put {ops} operations a call "
+                              f"on the card: {names[:8]}")
+            break
+    out.update(one_lane_leave=int(leave[lane]), ops_per_call=ops)
+    say(f"    {what}: one lane alone (exit trip {out['one_lane_leave']}) "
+        f"{out['one_lane_ms']:.4f} ms; empty call {out['empty_ms']:.4f} ms; one "
+        f"search_early_stop_packed call puts "
+        + (f"{ops} operations on the card" if ops is not None else
+           f"operations on the card not measured (the profiler delivered {seen} device "
+           f"events for {OPS_CALLS} calls)"))
+    return out
+
+
+OPS_CALLS = 5  # search_early_stop_packed calls in one profiled window
+
+
+def multistep_shape(label: str, args) -> dict:
+    """search_multistep on one call of the main path at another shape:
+    kernel against plain (every output), the whole search_early_stop_packed
+    against its plain version, the kernel's time (RUNS timings, their
+    median), its bound and its floors."""
+    import torch
+
+    from bwtpu_torch.kernels import searchk
+
+    got = searchk.search_multistep(*args)
+    want = searchk.search_multistep_plain(*args)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(got, want, strict=True)),
+            f"search_multistep != plain on the {label} call")
+    multistep_whole(args, label)
+    runs = sorted(cuda_ms(lambda: searchk.search_multistep(*args)) for _ in range(RUNS))
+    nbytes, ops, what = multistep_work(args)
+    rec = dict(ms=runs[RUNS // 2], wide_steps=args[15], **bound(nbytes, ops))
+    say(f"  search_multistep {label} ({what}, wide_steps {args[15]}): equal (all "
+        f"{len(got)} outputs); kernel {rec['ms']:.4f} ms (runs {runs[0]:.4f}-{runs[-1]:.4f}); "
+        f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}: {rec['bound_bytes']} B, "
+        f"{rec['bound_ops']} ops)")
+    rec.update(multistep_floor(args, label))
+    return rec
+
+
+def multistep_bench(sa1_dir: str, reads) -> dict:
+    """search_multistep at the bench's size: phase 5's reads tiled 4x in
+    one block (524,288 reads, 1,048,576 lanes after device_prep_packed)
+    through Engine.dispatch_block at k = 0 on phase 3's sa_rate 1 index."""
+    from bwtpu_torch import engine
+    from bwtpu_torch.index import load_index
+    from bwtpu_torch.kernels import searchk
+    from bwtpu_torch.readblock import ReadBlock
+
+    blk = ReadBlock.from_reads(reads * 4)
+    eng = engine.Engine(load_index(sa1_dir)[0], device="cuda")
+    calls: list = []
+    with capturing(searchk, "search_multistep", calls):
+        eng.dispatch_block(blk, 0, pad_to=blk.n)
+    require(len(calls) == 1 and calls[0][6].shape[0] == 2 * blk.n,
+            f"the bench-sized block made {len(calls)} search_multistep calls")
+    return multistep_shape(f"bench-sized k=0, {blk.n} reads", calls[0])
 
 
 def multistep_work(args):
@@ -624,9 +741,10 @@ def multistep_work(args):
     tail), the two sectors (checkpoint and BWT words) of each search
     lattice record the wide phase reads, and of each s-mer record a trip
     reads the fold word's sector and the code-byte sectors below the
-    lane's clamped interval end; each sector once. Outputs: six int32 and
-    one flag a lane, the histogram and trips. Operations: 2 per counted
-    code byte (compare, add), 60 per lane-trip, 40 per lane."""
+    lane's clamped interval end; each sector once. Outputs: six int32
+    (sp0, ep0, sp, ep, rem, over_lane) and one flag a lane, sel (cap
+    int32), the histogram and four scalars. Operations: 2 per counted code
+    byte (compare, add), 60 per lane-trip, 40 per lane."""
     import torch
 
     from bwtpu_torch.index import OCCK_BLOCK
@@ -635,7 +753,7 @@ def multistep_work(args):
     lat, latk, inv, C, dr, kt, words, amb, off, L, d, step, stop, mt, cs, wide = args
     B, W = words.shape
     dev = words.device
-    T, p, _ = searchk._shape(L, d, step, wide, B, cs)
+    T, p, cap = searchk._shape(L, d, step, wide, B, cs)
     R, A = OCCK_BLOCK[step], 4**step
     rec_sectors = latk.shape[1] * 4 // 32
     lo, hi = off >> 4, (off + L - 1) >> 4
@@ -688,7 +806,7 @@ def multistep_work(args):
             stopped = stopped | (active & ~sK & (width <= stop) & ((t + 1 >= mt) | (width <= 0)))
     nbytes = 32 * (row_sectors + kt_sectors + 2 * (n_unique(torch.cat(wide_recs)) if wide_recs
                                                      else 0)
-                   + (n_unique(torch.cat(secs)) if secs else 0)) + B * 25 + (T + 2) * 4
+                   + (n_unique(torch.cat(secs)) if secs else 0)) + B * 25 + (cap + T + 5) * 4
     ops = 2 * counted + 60 * lane_trips + 40 * B
     return nbytes, ops, f"{B} lanes x L {L}, d {d}, T {T}, {lane_trips} lane-trips"
 
@@ -746,8 +864,9 @@ def multistep_edges(idx, args0) -> None:
         if what.startswith("stop 0") and a[13] < trips < T:
             between.append(what)
         require(what != "T = 0" or T == trips == 0, f"edge call T = 0: T {T}, trips {trips}")
-        say(f"  search_multistep edge {what}: equal (all 7 outputs, and the whole search's "
-            f"6); T {T}, trips {trips}, n_unf {int(want[5].sum())}")
+        say(f"  search_multistep edge {what}: equal (all {len(want)} outputs, and the whole "
+            f"search's 6); T {T}, trips {trips}, n_unf {int(want[10])}, over_lane "
+            f"{int(want[9].sum())}")
     require(between, "no edge call exited strictly between min_trips and T")
 
 
@@ -1682,8 +1801,56 @@ def phase_paired(tmp: str):
             f"{N_SAMPLED} reads ({n_bf} hits); CLI columnar {rate[0]} reads/s ({rate[1]} s); "
             f"launches per shard and block "
             f"{ {n: c / (2 * n_blocks) for n, c in stats[k].items()} }")
+    wide = multistep_wide(tmp, fa, mates1[:BATCH], pos1[:BATCH], nm1[:BATCH])
     return ({n: sum(st[n] for st in stats.values()) for n in stats[0]}, build_s,
-            (idx_dir, fq1, fq2))
+            (idx_dir, fq1, fq2), wide)
+
+
+def multistep_wide(tmp: str, fa: str, mates1, pos1, nm1) -> dict:
+    """search_multistep where its s-mer lattice is larger than L2 and the
+    wide phase runs on the engine's own calls: a single-shard
+    `build-index --kmer-d 11` of phase 10's genome (otherwise the CLI
+    defaults; the default depth, 12, leaves E[width] = n / 4^12 = 2.8 and
+    no wide phase, d = 11 leaves 11.1 > 8 and one wide step), one block of
+    16,384 mate-1 reads through Engine.dispatch_block + finish_block at
+    k = 0 and 2. Every captured call must have wide_steps 1; the first of
+    each k is held against the plain version (multistep_shape); every
+    mate-1 read within k substitutions of its locus must be found there."""
+    import numpy as np
+
+    from bwtpu_torch.engine import Engine
+    from bwtpu_torch.index import load_index
+    from bwtpu_torch.kernels import searchk
+    from bwtpu_torch.readblock import ReadBlock
+
+    idx_dir = os.path.join(tmp, "chr21_idx1")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as built:
+        run_cli(["build-index", fa, idx_dir, "--kmer-d", "11"])
+    build_s = time.perf_counter() - t0
+    shards, _ = load_index(idx_dir)
+    say(f"  single-shard build-index --kmer-d 11: {build_s:.1f} s; "
+        f"{built.getvalue().strip()}")
+    eng = Engine(shards, device="cuda")
+    blk = ReadBlock.from_reads(mates1)
+    out = {"build_s": build_s}
+    for k in (0, 2):
+        calls: list = []
+        with capturing(searchk, "search_multistep", calls):
+            flat = eng.finish_block(eng.dispatch_block(blk, k, pad_to=BATCH))
+        require(calls and all(c[15] == 1 for c in calls),
+                f"single shard k={k}: wide_steps {[c[15] for c in calls]}, expected 1")
+        want = nm1 <= k
+        key = (flat.read_idx.astype(np.int64) << 36) | (flat.pos.astype(np.int64) << 1) | \
+            flat.strand_rev.astype(np.int64)
+        found = np.isin((np.flatnonzero(want).astype(np.int64) << 36)
+                        | (pos1[want].astype(np.int64) << 1), key)
+        require(found.all(), f"single shard k={k}: truth missing for {int((~found).sum())} "
+                             f"of {int(want.sum())} mate-1 reads")
+        say(f"  single shard k={k}: {int(want.sum())}/{int(want.sum())} mate-1 reads found at "
+            f"their loci; {len(calls)} search_multistep call(s), wide_steps 1")
+        out[f"k{k}"] = multistep_shape(f"single shard k={k} call 0", calls[0])
+    return out
 
 
 def phase_wide(tmp: str):
@@ -2264,7 +2431,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="bwtpu_torch_smoke_") as tmp:
         fa = os.path.join(tmp, "ecoli.fa")
         write_fasta(fa, [("ecoli_sim", genome)])
-        records, sa1_dir = phase_kernels(tmp, genome, fa, list_reads, reads[:BATCH])
+        records, sa1_dir = phase_kernels(tmp, genome, fa, list_reads, reads)
         phase_phix(tmp, root)
         idx_dir, launches, p5 = phase_main(tmp, genome, fa, reads, truth)
         list_launches = phase_read_list(tmp, genome, idx_dir, list_reads, list_truth)
@@ -2272,7 +2439,8 @@ def main() -> int:
         ab_launches, l2_rate = phase_gather_ab()
         chain1_l2(records["search_chain1"], l2_rate)
         rescore_launches = phase_rescore(tmp, genome, idx_dir, list_reads)
-        paired_launches, paired_build_s, p10 = phase_paired(tmp)
+        paired_launches, paired_build_s, p10, records["search_multistep"]["wide"] = \
+            phase_paired(tmp)
         wide_launches = phase_wide(tmp)
         ring_launches = phase_ring(tmp, smi, idx_dir, p5["fq"], reads, p10)
         bench_launches, profile_launches = phase_bench(tmp, smi, root, idx_dir, p5)
@@ -2285,7 +2453,8 @@ def main() -> int:
     for what, counts in paths.items():
         say(f"  launches on {what}: {counts}")
     say(f"[14] all phases passed in {time.perf_counter() - t_all:.1f} s on {smi} "
-        f"(the 2-shard build took {paired_build_s:.1f} s)")
+        f"(the 2-shard build took {paired_build_s:.1f} s, the single-shard one "
+        f"{records['search_multistep']['wide']['build_s']:.1f} s)")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[k] for c in paths.values()), **records[k],

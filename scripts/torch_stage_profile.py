@@ -8,8 +8,10 @@ blocks of BATCH reads (the CLI's default batch), each through
 Engine.dispatch_block + finish_block:
   wall     synchronized only at both ends: the pass's own wall;
   stages   a torch.cuda.synchronize() around every stage (prep, search,
-           finisher, compaction, locate_walk, verify_nm, hit compaction,
-           finish), so each stage's wall is its own, and one more row,
+           finisher: the two-record chain of the lanes the search's exit
+           kernel compacted, compaction, locate_walk, verify_nm, hit
+           compaction, finish), so each stage's wall is its own, and one
+           more row,
            "candidate stage": from the end of the candidate compaction to
            the end of verify_nm (locate_walk, verify_nm and every op
            around them that forms each candidate's start and mismatch
@@ -141,7 +143,7 @@ def _stage_hooks(totals, counts):
 
     saved = _patch([(engine, "device_prep_packed", "prep"),
                     (engine, "search_early_stop_packed", "search"),
-                    (searchk, "_fixup_stragglers_packed", "finisher"),
+                    (searchk, "_finisher", "finisher"),
                     (engine, "compact_counts", "compaction"),
                     (engine, "locate_walk", "locate_walk"),
                     (engine, "verify_nm", "verify_nm"),

@@ -103,13 +103,14 @@ def test_finisher_capacity_matches_bwtpu(k, max_heals, monkeypatch):
     from bwtpu_torch.kernels import searchk
 
     flagged = []
-    fixup = searchk._fixup_stragglers_packed
+    multistep = searchk.search_multistep
 
-    def counting(*args, cap):
-        flagged.append((int(args[11].sum()), cap))  # unfinished lanes
-        return fixup(*args, cap=cap)
+    def counting(*args):
+        out = multistep(*args)
+        flagged.append((int(out[10]), out[7].shape[0]))  # unfinished lanes, cap
+        return out
 
-    monkeypatch.setattr(searchk, "_fixup_stragglers_packed", counting)
+    monkeypatch.setattr(searchk, "search_multistep", counting)
     genome = adversarial_genome(20000, "tandem", seed=11)
     cfg = EngineConfig(sa_rate=4, max_hits=8, max_cand=8, read_len=60, max_heals=max_heals)
     idx = build_fm_index(genome, cfg)

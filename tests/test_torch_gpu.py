@@ -578,9 +578,9 @@ def _multistep_args(world, kind, step, d, dev, off, slen, stop, min_trips, cap_s
 def test_search_multistep_kernel_matches_plain(cuda, multistep_world, kind, step, d, off, slen,
                                                stop, min_trips, cap_scale, wide):
     """csrc/searchk.cu against search_multistep_plain on every output
-    (sp0, ep0, sp, ep, rem, unfinished, trips), then the whole
-    search_early_stop_packed against its plain version (finisher
-    included, with_stats)."""
+    (sp0, ep0, sp, ep, rem, unfinished, trips, and the exit's compaction:
+    sel, count, over_lane, n_unf), then the whole search_early_stop_packed
+    against its plain version (finisher included, with_stats)."""
     from bwtpu_torch.kernels import searchk
 
     args = _multistep_args(multistep_world, kind, step, d, cuda, off, slen, stop, min_trips,
@@ -589,12 +589,67 @@ def test_search_multistep_kernel_matches_plain(cuda, multistep_world, kind, step
     got = searchk.search_multistep(*args)
     want = searchk.search_multistep_plain(*args)
     assert searchk.search_multistep.launches == before + 1
-    for name, a, b in zip(("sp0", "ep0", "sp", "ep", "rem", "unfinished", "trips"), got, want):
+    for name, a, b in zip(MULTISTEP_OUTPUTS, got, want, strict=True):
         assert torch.equal(a, b), name
     got = searchk.search_early_stop_packed(*args, with_stats=True)
     want = searchk.search_early_stop_packed_plain(*args, with_stats=True)
     for name, a, b in zip(("sp", "ep", "rem", "overflow", "trips", "n_unf"), got, want):
         assert torch.equal(a, b), name
+
+
+MULTISTEP_OUTPUTS = ("sp0", "ep0", "sp", "ep", "rem", "unfinished", "trips", "sel", "count",
+                     "over_lane", "n_unf")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("step", [3, 4])
+@pytest.mark.parametrize("wide", [0, 1])
+def test_search_multistep_kernel_past_the_finisher_capacity(cuda, multistep_world, step, wide):
+    """A batch whose unfinished lanes outnumber the finisher's capacity
+    (the tandem genome at stop width 0): the lanes past it are forced
+    empty and flagged by the exit kernel, equal to the plain version's
+    compact + _force_over on every output, and the whole search equal."""
+    from bwtpu_torch.kernels import searchk
+
+    args = _multistep_args(multistep_world, "tandem", step, 11, cuda, 0, 100, 0, 0, 1, wide)
+    got = searchk.search_multistep(*args)
+    want = searchk.search_multistep_plain(*args)
+    for name, a, b in zip(MULTISTEP_OUTPUTS, got, want, strict=True):
+        assert torch.equal(a, b), name
+    assert int(want[10]) > want[7].shape[0] and int(want[9].sum()) > 0
+    for a, b in zip(searchk.search_early_stop_packed(*args, with_stats=True),
+                    searchk.search_early_stop_packed_plain(*args, with_stats=True)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_search_early_stop_packed_launches_at_most_four(cuda, multistep_world):
+    """One search_early_stop_packed call puts at most 4 operations on the
+    card (the workspace memset, the search, the exit with its compaction,
+    search_chain2), counted by torch.profiler over 5 calls; the launch
+    counters see one search_multistep and one search_chain2 a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bwtpu_torch.kernels import searchk
+
+    args = _multistep_args(multistep_world, "tandem", 3, 11, cuda, 0, 100, 16, 1, 1, 0)
+    searchk.search_early_stop_packed(*args, with_stats=True)  # warm: builds, allocator
+    torch.cuda.synchronize()
+    before = (searchk.search_multistep.launches, search2.search_chain2.launches)
+    calls = 0
+    for _ in range(3):  # a window with no device activity delivered is retried
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                searchk.search_early_stop_packed(*args, with_stats=True)
+            torch.cuda.synchronize()
+        calls += 5
+        ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ops:
+            break
+    assert 3 * 5 <= len(ops) <= 4 * 5, ops
+    assert (searchk.search_multistep.launches, search2.search_chain2.launches) == (
+        before[0] + calls, before[1] + calls)
 
 
 @pytest.mark.gpu
@@ -608,8 +663,9 @@ def test_search_multistep_edge_batches(cuda, multistep_world):
         args = list(_multistep_args(multistep_world, "random", 3, 11, cuda, 0, 100, 16, 2, 1,
                                     0))
         args[6], args[7] = args[6][:n].contiguous(), args[7][:n].contiguous()
-        for a, b in zip(searchk.search_multistep(*args), searchk.search_multistep_plain(*args)):
-            assert torch.equal(a, b), n
+        for name, a, b in zip(MULTISTEP_OUTPUTS, searchk.search_multistep(*args),
+                              searchk.search_multistep_plain(*args), strict=True):
+            assert torch.equal(a, b), (n, name)
 
 
 @pytest.mark.gpu

@@ -19,6 +19,7 @@ import bwtpu_torch.kernels.prep as tprep
 from bwtpu.config import EngineConfig
 from bwtpu.engine import pack_reads_for_bench, upload_index
 from bwtpu.index import build_fm_index
+from bwtpu.kernels.search2 import _fixup_stragglers_packed as j_fixup_packed
 from bwtpu.kernels.searchk import search_early_stop_packed as j_search
 from bwtpu.simulate import adversarial_genome, random_genome, simulate_reads
 from bwtpu_torch.kernels import searchk
@@ -146,7 +147,7 @@ def genomes():
     return out
 
 
-@pytest.mark.parametrize("kind,min_trips,wide_steps,cap_scale,off,L", [
+CASES = [
     ("random", 0, 0, 1, 0, 60),
     ("random", 1, 2, 2, 20, 20),
     ("tandem", 1, 0, 1, 0, 60),
@@ -154,7 +155,10 @@ def genomes():
     ("tandem", 1, 0, 1, 0, 20),
     ("random", 2, 0, 1, 20, 40),
     ("tandem", 3, 1, 1, 0, 60),
-])
+]
+
+
+@pytest.mark.parametrize("kind,min_trips,wide_steps,cap_scale,off,L", CASES)
 def test_search_early_stop_packed_matches_bwtpu(genomes, kind, min_trips, wide_steps,
                                                 cap_scale, off, L):
     """Every lane's (sp, ep, rem, overflow), and with_stats=True's trips
@@ -183,6 +187,42 @@ def test_search_early_stop_packed_matches_bwtpu(genomes, kind, min_trips, wide_s
         assert ((rem == 0) & (ep - sp > stop)).any()
         if cap_scale == 1:
             assert over.sum() > 0, "finisher capacity was meant to bind"
+
+
+@pytest.mark.parametrize("kind,min_trips,wide_steps,cap_scale,off,L", CASES)
+def test_search_multistep_compaction_matches_bwtpu(genomes, kind, min_trips, wide_steps,
+                                                   cap_scale, off, L):
+    """search_multistep_plain's compaction and capacity cut, which the
+    kernel's exit runs before the finisher's chain: sel[:count] and count
+    against bwtpu's compact(unfinished, cap), over_lane (and the forced
+    empty intervals) against bwtpu's _fixup_stragglers_packed on the same
+    unfinished flags, n_unf against their sum. Exact (integers); in the
+    tandem cases the 256-lane capacity binds."""
+    idx, shard, rw, ab = genomes[kind]
+    d = max(idx.kmer_tables)
+    targs = (_t(idx.search_lattice), _t(idx.occk_lattice), _t(idx.occk_invalid),
+             _t(idx.C), idx.dollar_row, _t(idx.kmer_tables[d]), _t(rw), _t(ab),
+             off, L, d, 3, 16, min_trips, cap_scale, wide_steps)
+    sp0, ep0, sp, ep, _, unf, _, sel, count, over, n_unf = searchk.search_multistep_plain(*targs)
+    cap = searchk._shape(L, d, 3, wide_steps, rw.shape[0], cap_scale)[2]
+    assert sel.shape == (cap,) and sel.dtype == count.dtype == n_unf.dtype == torch.int32
+    jsel, jcount, _ = jcompact.compact(jnp.asarray(unf.numpy()), cap)
+    n = int(jcount)
+    assert int(count) == n and int(n_unf) == int(unf.sum())
+    _eq(sel[:n], np.asarray(jsel)[:n], f"{kind} sel")
+    _eq(sel[n:], np.zeros(cap - n, np.int32), f"{kind} sel past count")
+    # the same intervals as the search left them, then bwtpu's finisher
+    sp_in = torch.where(over.bool(), sp0 + 1, sp)  # anything: the cut empties them
+    jsp, jep, jover = j_fixup_packed(
+        shard.lattice, shard.C, shard.dollar_row, jnp.asarray(rw), jnp.asarray(ab), off, L,
+        jnp.asarray(sp0.numpy()), jnp.asarray(ep0.numpy()), jnp.asarray(sp_in.numpy()),
+        jnp.asarray(ep.numpy()), jnp.asarray(unf.numpy()), d, cap=cap)
+    _eq(over, jover, f"{kind} over_lane")
+    lanes = np.flatnonzero(np.asarray(jover))
+    _eq(sp[lanes], np.asarray(jsp)[lanes], f"{kind} forced sp")
+    _eq(ep[lanes], np.asarray(jep)[lanes], f"{kind} forced ep")
+    if kind == "tandem" and cap_scale == 1:
+        assert int(over.sum()) == int(unf.sum()) - cap > 0, "the capacity was meant to bind"
 
 
 @pytest.fixture(scope="module")
@@ -236,7 +276,7 @@ def test_search_early_stop_packed_edge_cases_match_bwtpu(genomes, genomes4, case
         _eq(a, b, case)
     T, p, _ = searchk._shape(L, d, step, wide_steps, rw.shape[0], cap_scale)
     trips = int(got[4])
-    _, _, _, _, rem, unf, _ = searchk.search_multistep_plain(*targs)
+    rem, unf = searchk.search_multistep_plain(*targs)[4:6]
     if case == "step 4":
         assert idx.occk_lattice.shape[1] == 512 and 0 < trips
     elif case == "T = 0":

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 import bwtpu.kernels.search2 as jsearch2
+import bwtpu_torch.kernels.compact as tcompact
 import bwtpu_torch.kernels.search2 as tsearch2
+import bwtpu_torch.kernels.searchk as tsearchk
 from bwtpu import dna
 from bwtpu.config import EngineConfig
 from bwtpu.engine import upload_index
@@ -212,9 +214,12 @@ FLAGGED = {"count0": lambda cap: 0, "count_cap": lambda cap: cap,
 @pytest.mark.parametrize("case", sorted(FLAGGED))
 @pytest.mark.parametrize("off,slen,d", [(0, 60, 4), (7, 37, 4), (23, 19, 0)])
 def test_packed_finisher_matches_bwtpu(genomes, case, off, slen, d):
-    """_fixup_stragglers_packed (search_chain2 on Packed rows, sel and a
-    device count) against bwtpu's: slices at off > 0 and of lengths that
-    are not multiples of 16, ambiguous bases, wide and narrow starts."""
+    """The packed finisher as search_early_stop_packed runs it (compact and
+    _force_over, which the kernel path runs in search_multistep's exit,
+    then searchk._finisher: search_chain2 on Packed rows, sel and a device
+    count) against bwtpu's _fixup_stragglers_packed: slices at off > 0 and
+    of lengths that are not multiples of 16, ambiguous bases, wide and
+    narrow starts."""
     g, idx, shard = genomes["tandem"]
     B, L, cap = 400, 60, 128
     words, amb_bits = _packed_rows(g, B, L, seed=off + slen)
@@ -229,9 +234,11 @@ def test_packed_finisher_matches_bwtpu(genomes, case, off, slen, d):
         shard.lattice, shard.C, shard.dollar_row, jnp.asarray(words), jnp.asarray(amb_bits),
         off, slen, jnp.asarray(sp0), jnp.asarray(ep0), jnp.asarray(sp), jnp.asarray(ep),
         jnp.asarray(strag), d, cap=cap)
-    got = tsearch2._fixup_stragglers_packed(
-        _t(idx.search_lattice), _t(idx.C), idx.dollar_row, _t(words), _t(amb_bits), off,
-        slen, _t(sp0), _t(ep0), _t(sp), _t(ep), _t(strag), d, cap)
+    sel, count, _ = tcompact.compact(_t(strag), cap)
+    got = tsearch2._force_over(_t(sp), _t(ep), _t(strag), cap)
+    tsearchk._finisher(_t(idx.search_lattice), _t(idx.C), idx.dollar_row, _t(words),
+                       _t(amb_bits), off, slen, _t(sp0), _t(ep0), sel, count, got[0], got[1],
+                       d)
     for name, a, b in zip(("sp", "ep", "over_lane"), got, want):
         _eq(a, b, name)
     assert int(got[2].sum()) == max(0, int(strag.sum()) - cap)
