@@ -109,7 +109,33 @@ Phases, in order; any failure raises and the exit code is not 0:
      on phase 5's FASTQ at k = 2: SAM byte-equal to phase 5's, and
      search_multistep, locate_walk, verify_nm and search_chain2 named as
      kernels in the trace;
- 14. the result lines.
+ 14. human scale on one card:
+     14a. test_scale_int32 (bwtpu's row-math check) at a human shard's
+          size: build_fm_index of its genome (random, 2^28 + 4096 bp, seed
+          77) with its config and kmer_d 11, built in a process of its own
+          while phases 3-13 run, so that Engine._wide_steps(11) == 2. Its
+          48 simulated reads plus its head and tail reads through
+          Engine.align_batch at k = 0 and 2 (truth as the test asserts it,
+          at least 8 truths past 2^27), then one block of 65,536 reads
+          (scale_human_chip.py's --batch) through dispatch_block +
+          finish_block at k = 0 and 2: every search_multistep call with
+          wide_steps 2, the first of each k held against its plain version,
+          timed, bounded and floored as in phase 10; the block's truth;
+          brute force over the whole shard on as many sampled reads as fit
+          in 30 s (at least 16); search_multistep, locate_walk, verify_nm and
+          search_chain2 launched; the shard's bytes on the card;
+     14b. scripts/torch_scale_human.py as a subprocess (started beside
+          14a's brute force, which is not timed) at 40 Mbp (10
+          shards of ~4 Mbp) with small batches and --tiered: rc 0, both JSON
+          lines with every key of scripts/scale_human.py's and
+          scale_human_chip.py's (read with ast), every truth recovered,
+          every hit sound, no overflowed read, search_multistep launched in
+          both halves and search_chain2, locate_walk and verify_nm in the
+          card half.
+     Cuts: 14a is 1 shard of a human genome's 10, at its own offset of 0;
+     14b is 40 Mbp of 2.5 Gbp. Positions past 2^31 on the card come only
+     from the script's full-size run, not from this smoke;
+ 15. the result lines.
 
 The genome is random at E. coli size (4,641,652 bp) with one dispersed
 repeat family (300 copies of a 12 bp motif), so that some 11-mer start
@@ -149,50 +175,6 @@ def require(ok: bool, what: str) -> None:
 
 def say(*a) -> None:
     print(*a, flush=True)
-
-
-def cuda_ms(fn, reps: int = 50) -> float:
-    """Device time of one fn() call: CUDA events around `reps`
-    back-to-back calls, divided by `reps`, after warm-up calls. The
-    calls are queued behind a ~30 ms device sleep, so the host's
-    per-call overhead overlaps the device's work instead of leaving the
-    card idle between launches."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(50_000_000)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-# H100 SXM peaks (NVIDIA's published figures): HBM3 bytes/s,
-# and the float32 rate outside the tensor cores, which stands here for the
-# kernels' 32-bit integer ALU work (an upper rate, so the bound stays a
-# lower bound)
-PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
-
-
-def bound(nbytes: float, ops: float) -> dict:
-    """The least time the card could take: bytes over the memory rate or
-    operations over the ALU rate, whichever is larger."""
-    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
-    return dict(bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations",
-                bound_bytes=int(nbytes), bound_ops=int(ops))
-
-
-def n_unique(t) -> int:
-    import torch
-
-    return int(torch.unique(t).numel()) if t.numel() else 0
 
 
 def phase_card():
@@ -357,6 +339,7 @@ def verify_wide(idx, put, rng) -> dict:
     """verify_nm's run-time-W instance (reads over 320 bases) at W = 25
     (L 400, text rows built for 400) on verify_edges' inputs: checked,
     timed beside its plain version, its bound counted from the inputs."""
+    from bwtpu_torch.kernels.bounds import bound, cuda_ms
     from bwtpu_torch.kernels.verify2 import build_text_rows, verify_nm, verify_nm_plain
 
     args, want = verify_edges(put(build_text_rows(idx.text_packed, 400)), idx.text_len,
@@ -385,6 +368,7 @@ def sw_kernel(idx, batch) -> dict:
     from bwtpu_torch import sw
     from bwtpu_torch.engine import Engine
     from bwtpu_torch.golden import select_primary
+    from bwtpu_torch.kernels.bounds import bound, cuda_ms
 
     eng = Engine([idx], device="cuda")
     hits = eng.align_batch(batch, 2)
@@ -505,6 +489,7 @@ def main_path_kernels(idx, block_reads):
 
     from bwtpu_torch import engine
     from bwtpu_torch.kernels import locate, search2, searchk
+    from bwtpu_torch.kernels.bounds import bound, cuda_ms, multistep_work
     from bwtpu_torch.kernels.verify2 import verify_nm, verify_nm_plain
     from bwtpu_torch.readblock import ReadBlock
 
@@ -590,6 +575,7 @@ def chain2_floor(kern, args) -> dict:
     from bwtpu_torch.config import EngineConfig
     from bwtpu_torch.index import build_fm_index
     from bwtpu_torch.kernels import search2
+    from bwtpu_torch.kernels.bounds import cuda_ms
     from bwtpu_torch.simulate import random_genome
 
     one = torch.ones_like(args[7])
@@ -648,6 +634,7 @@ def multistep_floor(args, what: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from bwtpu_torch.kernels import searchk
+    from bwtpu_torch.kernels.bounds import cuda_ms
 
     leave = searchk.lanes_plain(*args)[6]
     lane = int(torch.argmax(leave))
@@ -697,6 +684,7 @@ def multistep_shape(label: str, args) -> dict:
     import torch
 
     from bwtpu_torch.kernels import searchk
+    from bwtpu_torch.kernels.bounds import bound, cuda_ms, multistep_work
 
     got = searchk.search_multistep(*args)
     want = searchk.search_multistep_plain(*args)
@@ -732,83 +720,6 @@ def multistep_bench(sa1_dir: str, reads) -> dict:
     require(len(calls) == 1 and calls[0][6].shape[0] == 2 * blk.n,
             f"the bench-sized block made {len(calls)} search_multistep calls")
     return multistep_shape(f"bench-sized k=0, {blk.n} reads", calls[0])
-
-
-def multistep_work(args):
-    """(bytes, ops, what) of a search_multistep call, counted in 32 B
-    sectors from the plain version's trips replayed: each lane's pattern
-    words (both planes), its start-table entry (8 B, none on an ambiguous
-    tail), the two sectors (checkpoint and BWT words) of each search
-    lattice record the wide phase reads, and of each s-mer record a trip
-    reads the fold word's sector and the code-byte sectors below the
-    lane's clamped interval end; each sector once. Outputs: six int32
-    (sp0, ep0, sp, ep, rem, over_lane) and one flag a lane, sel (cap
-    int32), the histogram and four scalars. Operations: 2 per counted code
-    byte (compare, add), 60 per lane-trip, 40 per lane."""
-    import torch
-
-    from bwtpu_torch.index import OCCK_BLOCK
-    from bwtpu_torch.kernels import common, prep, searchk
-
-    lat, latk, inv, C, dr, kt, words, amb, off, L, d, step, stop, mt, cs, wide = args
-    B, W = words.shape
-    dev = words.device
-    T, p, cap = searchk._shape(L, d, step, wide, B, cs)
-    R, A = OCCK_BLOCK[step], 4**step
-    rec_sectors = latk.shape[1] * 4 // 32
-    lo, hi = off >> 4, (off + L - 1) >> 4
-    lanes = torch.arange(B, device=dev, dtype=torch.int64)
-    wi = (lanes[:, None] * W + torch.arange(lo, hi + 1, device=dev)[None, :]).reshape(-1)
-    row_sectors = 2 * n_unique(wi // 8)
-    key, amb_tail = prep.kmer_key_packed(words, amb, off, L, d)
-    kt_sectors = n_unique(key[~amb_tail].long() // 4)
-    sp = torch.where(amb_tail, 0, kt[key.long(), 0])
-    ep = torch.where(amb_tail, 0, kt[key.long(), 1])
-    chain = L - d
-    stopped = (ep - sp <= 0) if mt > 0 else (ep - sp <= stop)
-    wide_recs = []
-    for ws in range(wide):
-        c = prep.extract_bits(words, off + chain - 1 - ws, 2).to(torch.int32)
-        a = prep.extract_bits(amb, off + chain - 1 - ws, 2) != 0
-        act = ~stopped
-        wide_recs += [(sp >> 7)[act & ~a], (ep >> 7)[act & ~a]]
-        o_sp = common.occ(lat, dr, c, torch.where(act, sp, 0))
-        o_ep = common.occ(lat, dr, c, torch.where(act, ep, 0))
-        cb = common.select_scalar_table(C, c + 1, 8)
-        sp = torch.where(act, torch.where(a, 0, cb + o_sp), sp)
-        ep = torch.where(act, torch.where(a, 0, cb + o_ep), ep)
-        stopped = stopped | (act & (ep - sp <= 0))
-    secs, lane_trips, counted = [], 0, 0
-    strag = torch.zeros_like(stopped)
-    if T > 0:
-        t_all, a_all = prep.smer_codes_packed(words, amb, off + p, T, step)
-        for t in range(T):
-            g = T - 1 - t
-            active = ~stopped & ~strag
-            blk = (sp // R).long()
-            lim = (ep - blk * R).clamp(0, R)
-            live = active & ~a_all[:, g]
-            lane_trips += int(active.sum())
-            counted += int(lim[live].sum())
-            first = blk * rec_sectors + A * 4 // 32
-            n_sec = (lim + 31) // 32
-            span = torch.arange(R // 32, device=dev)
-            sec = first[:, None] + span[None, :]
-            secs += [sec[live[:, None] & (span[None, :] < n_sec[:, None])],
-                     (blk * rec_sectors + t_all[:, g] // 8)[live]]
-            rec = latk.index_select(0, torch.where(active, sp // R, 0))
-            sp_n, ep_n, sK = searchk.occk_pair_from_record(rec, t_all[:, g], sp, ep, inv, A, R)
-            aS = a_all[:, g]
-            sp = torch.where(active, torch.where(aS, 0, sp_n), sp)
-            ep = torch.where(active, torch.where(aS, 0, ep_n), ep)
-            strag = strag | (active & sK)
-            width = ep - sp
-            stopped = stopped | (active & ~sK & (width <= stop) & ((t + 1 >= mt) | (width <= 0)))
-    nbytes = 32 * (row_sectors + kt_sectors + 2 * (n_unique(torch.cat(wide_recs)) if wide_recs
-                                                     else 0)
-                   + (n_unique(torch.cat(secs)) if secs else 0)) + B * 25 + (cap + T + 5) * 4
-    ops = 2 * counted + 60 * lane_trips + 40 * B
-    return nbytes, ops, f"{B} lanes x L {L}, d {d}, T {T}, {lane_trips} lane-trips"
 
 
 def multistep_edges(idx, args0) -> None:
@@ -937,6 +848,7 @@ def chain2_work(args):
     import torch
 
     from bwtpu_torch.kernels import search2
+    from bwtpu_torch.kernels.bounds import n_unique
 
     lat, C, dr, pattern, sp0, ep0, sel, count, _, _, d = args
     lanes = sel[: int(count)].long()
@@ -969,6 +881,7 @@ def locate_work(args):
     import torch
 
     from bwtpu_torch.kernels import common
+    from bwtpu_torch.kernels.bounds import n_unique
 
     lat, ssa, C, dr, rows, sel, count, sa_rate = args
     n = int(count)
@@ -1002,6 +915,8 @@ def verify_work(args):
     the read-level rows (words, ambiguity bits, length mask, length) of
     the lanes and reads the live slots name, each read once (a plane of
     row stride 0 is one row); cand and nm out."""
+    from bwtpu_torch.kernels.bounds import n_unique
+
     tr, tl, spos, sel, count, seed_off, rw, ab, lm, lens, max_loc, n_slots = args
     cap, W = sel.shape[0], rw.shape[1]
     n = int(count)
@@ -1028,9 +943,10 @@ def locv_kernel(genome: str, sa1_dir: str, put, rng, records):
 
     from bwtpu_torch import dna
     from bwtpu_torch.index import load_index
-    from bwtpu_torch.simulate import simulate_reads
+    from bwtpu_torch.kernels.bounds import bound, cuda_ms, n_unique
     from bwtpu_torch.kernels.verify2 import (build_locv_rows, pack_reads, verify_locv,
                                              verify_locv_plain)
+    from bwtpu_torch.simulate import simulate_reads
 
     L = 100
     idx = load_index(sa1_dir)[0][0]
@@ -1078,6 +994,7 @@ def gather_kernel(locv, latk, rng):
     (Wr 128, 9.3 MB)."""
     import torch
 
+    from bwtpu_torch.kernels.bounds import bound, cuda_ms, n_unique
     from bwtpu_torch.kernels.gather import row_gather_sum, row_gather_sum_plain
 
     rec = None
@@ -1113,6 +1030,7 @@ def search_kernels(idx, batch, put):
 
     from bwtpu_torch import engine
     from bwtpu_torch.kernels import search2
+    from bwtpu_torch.kernels.bounds import bound, cuda_ms
     from bwtpu_torch.kernels.search2 import (Planes, _search_ra_chain, _two_gather_search,
                                              search_chain1, search_chain2,
                                              start_intervals)
@@ -1191,6 +1109,7 @@ def chain1_floor(args, pstrag) -> dict:
     from bwtpu_torch.config import EngineConfig
     from bwtpu_torch.index import build_fm_index
     from bwtpu_torch.kernels import search2
+    from bwtpu_torch.kernels.bounds import cuda_ms
     from bwtpu_torch.simulate import random_genome
 
     lat, C, dr, codes, amb, lens, sp0, ep0, d = args
@@ -1230,6 +1149,7 @@ def chain1_work(args):
     import torch
 
     from bwtpu_torch.kernels import search2
+    from bwtpu_torch.kernels.bounds import n_unique
 
     lat, C, dr, codes, amb, lens, sp, ep, d = args
     strag = torch.zeros_like(lens, dtype=torch.bool)
@@ -2322,6 +2242,277 @@ def phase_bench(tmp: str, smi: str, root: str, idx5: str, p5: dict) -> tuple[dic
     return total, plaunches
 
 
+# phase 14: test_scale_int32's index (bwtpu's row-math check) with
+# kmer_d 11, so that Engine._wide_steps(11) == 2 (n / 4^11 = 64 -> 16 -> 4)
+INT32_N = 2**28 + 4096
+HUMAN_BATCH = 65536  # scale_human_chip.py's --batch
+BF_SECONDS, BF_MIN, BF_CHUNK = 30.0, 16, 8  # phase 14a's brute force: reads
+SCALE_TIMEOUT = 600  # seconds for phase 14b's subprocess
+
+
+def int32_index(path: str) -> None:
+    """Phase 14a's index, built in a process of its own while phases 3-13
+    run: build_fm_index of test_scale_int32's genome (random, 2^28 + 4096
+    bp, seed 77) with its config and kmer_d 11, saved to `path`."""
+    from bwtpu_torch.config import EngineConfig
+    from bwtpu_torch.index import build_fm_index, plan_shards, save_index
+    from bwtpu_torch.simulate import random_genome
+
+    t0 = time.perf_counter()
+    idx = build_fm_index(random_genome(INT32_N, seed=77),
+                         EngineConfig(sa_rate=8, max_hits=4, max_cand=8, read_len=100,
+                                      kmer_d=11))
+    save_index(path, [idx], plan_shards(idx.text_len, 1, 0))
+    print(f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def start_int32_index(root: str, tmp: str):
+    """Start int32_index in a child process; returns (process, directory)."""
+    path = os.path.join(tmp, "int32_idx")
+    code = f"import chip_smoke; chip_smoke.int32_index({path!r})"
+    return subprocess.Popen([sys.executable, "-c", code], cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), path
+
+
+def phase_int32(index_proc, path: str):
+    """14a: test_scale_int32 at a human shard's size on the card, with two
+    wide steps on the engine's own calls. One shard of 2^28 + 4096 bp (1 of
+    a human genome's 10, at its own offset of 0; positions past 2^31 on the
+    card come only from the full-size run of scripts/torch_scale_human.py).
+    The test's 48 simulated reads plus its head and tail reads through
+    Engine.align_batch at k = 0 and 2, truth as the test asserts it (at
+    least 8 truths past 2^27); one block of 65,536 simulated reads through
+    dispatch_block + finish_block at k = 0 and 2: every search_multistep
+    call with wide_steps 2, the first call of each k held against its plain
+    version, timed, bounded and floored (multistep_shape), the block's
+    truth; search_multistep, locate_walk, verify_nm and search_chain2
+    launched. Returns the launches, the search_multistep records and the
+    arguments of int32_brute_force."""
+    import numpy as np
+    import torch
+
+    from bwtpu_torch.engine import Engine
+    from bwtpu_torch.index import load_index
+    from bwtpu_torch.io import Read
+    from bwtpu_torch.kernels import searchk
+    from bwtpu_torch.readblock import ReadBlock
+    from bwtpu_torch.simulate import random_genome, simulate_reads
+
+    say(f"[14] human scale on one card: 14a, one shard of {INT32_N} bp (kmer_d 11, sa_rate 8), "
+        f"two wide steps")
+    t0 = time.perf_counter()
+    out, _ = index_proc.communicate(timeout=1200)
+    require(index_proc.returncode == 0, f"the 14a index build failed: {out[-2000:]}")
+    shards, _ = load_index(path)
+    idx = shards[0]
+    require(idx.n == INT32_N + 1 and idx.n > 2**28, f"14a: n {idx.n}")
+    eng = Engine(shards, device="cuda")
+    sh = eng.dev_shards[0]
+    resident = sum(t.numel() * t.element_size() for t in
+                   [*(f for f in sh if isinstance(f, torch.Tensor)), *sh.kmer_tables.values()])
+    require(eng._wide_steps(11) == 2, f"14a: _wide_steps(11) {eng._wide_steps(11)}")
+    say(f"  index: built and saved in a child process in {out.strip()}; waited "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"resident on the card {resident} B ({resident / idx.text_len:.3f} B/base); "
+        f"_wide_steps(11) = 2")
+
+    t0 = time.perf_counter()
+    genome = random_genome(INT32_N, seed=77)
+    reads, truth = simulate_reads(genome, 48, read_len=100, max_mismatches=2, seed=78)
+    reads.append(Read(rid="head", seq=genome[:100], qual="I" * 100))
+    truth.append({"pos": 0, "strand": "+", "nm": 0})
+    reads.append(Read(rid="tail", seq=genome[INT32_N - 100:], qual="I" * 100))
+    truth.append({"pos": INT32_N - 100, "strand": "+", "nm": 0})
+    block_reads, block_truth = simulate_reads(genome, HUMAN_BATCH, read_len=100,
+                                              max_mismatches=2, seed=SEED + 17)
+    blk = ReadBlock.from_reads(block_reads)
+    say(f"  simulated the reads: {time.perf_counter() - t0:.1f} s")
+
+    calls = {"test": [], 0: [], 2: []}
+    flats = {}
+    reset_launches()
+    with capturing(searchk, "search_multistep", calls["test"]):
+        for k in (0, 2):
+            got = eng.align_batch(reads, k=k)
+            for r, t, hits in zip(reads, truth, got):
+                require(t["nm"] > k or any(h.pos == t["pos"] and h.strand == t["strand"]
+                                           and h.nm == t["nm"] for h in hits),
+                        f"14a test reads k={k}: {r.rid} {t} not in {hits[:4]}")
+    for k in (0, 2):
+        with capturing(searchk, "search_multistep", calls[k]):
+            flats[k] = eng.finish_block(eng.dispatch_block(blk, k, pad_to=blk.n))
+    launches = read_launches()
+    beyond = sum(1 for t in truth if t["pos"] > 2**27)
+    require(beyond >= 8, f"14a: {beyond} truths past 2^27")
+    wide = {n: [c[15] for c in v] for n, v in calls.items()}
+    require(all(calls.values()) and all(w == 2 for v in wide.values() for w in v),
+            f"14a: search_multistep wide_steps {wide}, expected 2 on every call")
+    need = ("search_multistep", "locate_walk", "verify_nm", "search_chain2")
+    require(all(launches[n] > 0 for n in need), f"14a: a kernel never ran: {launches}")
+    say(f"  test_scale_int32's {len(reads)} reads at k = 0 and 2: truth as the test asserts it "
+        f"({beyond} past 2^27); search_multistep calls with wide_steps 2: "
+        f"{ {n: len(v) for n, v in wide.items()} }; launches {launches}")
+
+    t_pos = np.array([t["pos"] for t in block_truth], np.int64)
+    t_rev = np.array([t["strand"] == "-" for t in block_truth], np.int64)
+    t_nm = np.array([t["nm"] for t in block_truth], np.int64)
+    key = lambda r, p, s, m: ((r * 4 + m) << 34) | (p << 1) | s  # noqa: E731
+    cols = {}
+    for k, flat in flats.items():
+        require(flat.truncated is None, f"14a block k={k}: truncated reads")
+        cols[k] = (flat.read_idx.astype(np.int64), flat.pos.astype(np.int64),
+                   flat.strand_rev.astype(np.int64), flat.nm.astype(np.int64))
+        want = np.flatnonzero(t_nm <= k)
+        found = np.isin(key(want, t_pos[want], t_rev[want], t_nm[want]), key(*cols[k]))
+        require(found.all(), f"14a block k={k}: truth missing for {int((~found).sum())} of "
+                             f"{len(want)} reads")
+        say(f"  block of {blk.n} reads k={k}: truth {len(want)}/{len(want)} "
+            f"({int((t_pos[want] > 2**27).sum())} past 2^27); {len(cols[k][0])} hits; heals "
+            f"{eng.stats.heals} so far")
+    records = {f"k{k}": multistep_shape(f"268 Mbp shard k={k} call 0", calls[k][0])
+               for k in (0, 2)}
+    return launches, records, (genome, block_reads, cols)
+
+
+def int32_brute_force(genome: str, block_reads, cols) -> None:
+    """14a's brute force: the hits of as many sampled block reads as fit
+    in BF_SECONDS (at least BF_MIN), scanned over the whole shard on the
+    card, equal to the block's at k = 0 and 2."""
+    import numpy as np
+    import torch
+
+    from bwtpu_torch import dna
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g_t = torch.from_numpy(dna.encode(genome)).cuda()
+    order = np.random.default_rng(SEED + 18).permutation(len(block_reads))
+    done, bf = 0, set()
+    while done < BF_MIN or time.perf_counter() - t0 < BF_SECONDS:
+        bf |= brute_force_sample(g_t, block_reads, order[done:done + BF_CHUNK], 2)
+        done += BF_CHUNK
+    del g_t
+    torch.cuda.empty_cache()
+    sample = np.sort(order[:done])
+    n_bf = {k: check_sampled(cols[k], bf, sample, k, "14a block") for k in (0, 2)}
+    say(f"  brute force over the whole shard on {done} sampled block reads in "
+        f"{time.perf_counter() - t0:.1f} s (14b running beside it): k = 0 and 2 hit sets "
+        f"equal ({n_bf} hits)")
+
+
+def scale_human_keys(root: str) -> tuple[set, set]:
+    """(keys of scripts/scale_human.py's JSON line, keys of
+    scripts/scale_human_chip.py's `out` dict), read from their sources with
+    ast (nothing is imported): the literal keys and out's subscripted keys,
+    f-string keys expanded over the k values `measure` is called with."""
+    import ast
+
+    def parse(name):
+        with open(os.path.join(root, "scripts", name)) as f:
+            return ast.parse(f.read())
+
+    tree = parse("scale_human.py")
+    line = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+            and getattr(n.func, "attr", None) == "dumps" and n.args
+            and isinstance(n.args[0], ast.Dict)][-1].args[0]
+    build = {k.value for k in line.keys}
+    tree = parse("scale_human_chip.py")
+    ks = {n.args[0].value for n in ast.walk(tree) if isinstance(n, ast.Call)
+          and getattr(n.func, "id", None) == "measure"}
+
+    def names(key) -> set:
+        if isinstance(key, ast.JoinedStr):
+            return {"".join(v.value if isinstance(v, ast.Constant) else str(k)
+                            for v in key.values) for k in ks}
+        return {key.value}
+
+    chip = set()
+    for n in ast.walk(tree):
+        if not isinstance(n, ast.Assign):
+            continue
+        t = n.targets[0]
+        if isinstance(t, ast.Name) and t.id == "out" and isinstance(n.value, ast.Dict):
+            chip |= {k for key in n.value.keys for k in names(key)}
+        elif isinstance(t, ast.Subscript) and getattr(t.value, "id", None) == "out":
+            chip |= names(t.slice)
+    return build, chip
+
+
+def json_lines(text: str) -> list:
+    """The JSON objects among a program's stdout lines."""
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def start_scale_script(root: str, tmp: str):
+    """Start 14b: scripts/torch_scale_human.py at 40 Mbp (of 2.5 Gbp: 10
+    shards of ~4 Mbp), both halves, small batches and --tiered, in a
+    session of its own, its output to files; returns (process, output
+    path, start time)."""
+    cmd = [sys.executable, os.path.join(root, "scripts", "torch_scale_human.py"),
+           "--bp", "40000000", "--jobs", "4", "--out", os.path.join(tmp, "human_small"),
+           "--batch", "8192", "--k2-batch", "8192", "--n-truth", "1024", "--tiered"]
+    out = os.path.join(tmp, "scale_human.out")
+    with open(out, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=root, env=dict(os.environ, SCALE_HUMAN_ALLOW_SMALL="1"),
+                                stdout=f, stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+    return proc, out, time.perf_counter()
+
+
+def stop_session(proc) -> None:
+    """Kill a process started in a session of its own, with its children."""
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def phase_scale_script(root: str, run) -> dict:
+    """14b: the wiring of scripts/torch_scale_human.py, started by
+    start_scale_script: rc 0, both JSON lines with every key of the
+    reference scripts', every truth recovered (the sample's and the card
+    half's), every hit sound, no overflowed read, search_multistep
+    launched in both halves and search_chain2, locate_walk and verify_nm
+    in the card half. Returns the launches of both halves."""
+    proc, path, t0 = run
+    say("[14] 14b: scripts/torch_scale_human.py --bp 40000000 (10 shards), small batches, "
+        "--tiered")
+    try:
+        proc.wait(timeout=SCALE_TIMEOUT)
+    finally:
+        stop_session(proc)
+    with open(path) as f:
+        out = f.read()
+    if proc.returncode != 0:
+        say(out[-8000:])
+    require(proc.returncode == 0, f"torch_scale_human.py exited with {proc.returncode}")
+    build, card, chip = json_lines(out)
+    want_build, want_chip = scale_human_keys(root)
+    require(want_build <= set(build) and want_chip <= set(chip),
+            f"14b: keys missing: {sorted(want_build - set(build))} "
+            f"{sorted(want_chip - set(chip))}")
+    require(build["truth_recovered"] == build["sample_reads"]
+            and build["recovered_beyond_int32"] == build["truth_beyond_int32"]
+            and chip["truth_recovered"] == chip["truth_reads"]
+            and chip["recovered_beyond_int32"] == chip["truth_beyond_int32"]
+            and chip["unsound_hits"] == 0 and chip["sound_hits"] > 0
+            and chip["overflow_reads"] == 0 and chip["platform"] == "cuda",
+            f"14b: {build} {chip}")
+    lb, lc = build["launches"], card["launches"]
+    require(lb["search_multistep"] > 0 and all(
+        lc[n] > 0 for n in ("search_multistep", "search_chain2", "locate_walk", "verify_nm")),
+            f"14b: launches {lb} {lc}")
+    for line in (build, card, chip):
+        say(f"  {json.dumps(line)}")
+    say(f"  14b: rc 0 in {time.perf_counter() - t0:.1f} s; both lines carry every key of "
+        f"scale_human.py's and scale_human_chip.py's; truth {build['truth_recovered']}/"
+        f"{build['sample_reads']} and {chip['truth_recovered']}/{chip['truth_reads']}, "
+        f"{chip['sound_hits']} hits sound; search_chain1 launched {lb['search_chain1']} + "
+        f"{lc['search_chain1']} times (uniform 100 bp reads take the packed path)")
+    return {n: lb[n] + lc[n] for n in lb}
+
+
 KERNELS = {  # name: (source, TPU kernel (or jnp code) it replaces)
     "sw_band": ("bwtpu_torch/csrc/sw.cu", "bwtpu/sw.py:28"),
     "locate_walk": ("bwtpu_torch/csrc/locate.cu", "bwtpu/kernels/pallas_step.py:256"),
@@ -2405,6 +2596,49 @@ def read_list_reads(genome: str):
             [truth[j] for j in order])
 
 
+def run_phases(tmp: str, root: str, smi: str, genome: str, list_reads, list_truth, reads,
+               truth, index_proc, int32_dir: str):
+    """Phases 3-14 in order. Returns the kernel records, the launches of
+    each path and the index builds' seconds."""
+    from bwtpu_torch.io import write_fasta
+
+    fa = os.path.join(tmp, "ecoli.fa")
+    write_fasta(fa, [("ecoli_sim", genome)])
+    records, sa1_dir = phase_kernels(tmp, genome, fa, list_reads, reads)
+    phase_phix(tmp, root)
+    idx_dir, launches, p5 = phase_main(tmp, genome, fa, reads, truth)
+    list_launches = phase_read_list(tmp, genome, idx_dir, list_reads, list_truth)
+    locv_launches = phase_locv(tmp, p5, sa1_dir)
+    ab_launches, l2_rate = phase_gather_ab()
+    chain1_l2(records["search_chain1"], l2_rate)
+    rescore_launches = phase_rescore(tmp, genome, idx_dir, list_reads)
+    paired_launches, paired_build_s, p10, records["search_multistep"]["wide"] = \
+        phase_paired(tmp)
+    wide_launches = phase_wide(tmp)
+    ring_launches = phase_ring(tmp, smi, idx_dir, p5["fq"], reads, p10)
+    bench_launches, profile_launches = phase_bench(tmp, smi, root, idx_dir, p5)
+    t0 = time.perf_counter()
+    int32_launches, records["search_multistep"]["human"], bf_args = phase_int32(
+        index_proc, int32_dir)
+    script = start_scale_script(root, tmp)  # 14b runs beside 14a's brute force
+    try:
+        int32_brute_force(*bf_args)
+        script_launches = phase_scale_script(root, script)
+    finally:
+        stop_session(script[0])
+    say(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+    paths = {"slice 1's path": launches, "the Read-list path": list_launches,
+             "the sa_rate 1 path": locv_launches, "the --rescore path": rescore_launches,
+             "paired-end on 2 shards": paired_launches, "wide reads": wide_launches,
+             "the ring (every rank)": ring_launches, "the gather A/B": ab_launches,
+             "the bench (sections and probe ranks)": bench_launches,
+             "align --profile": profile_launches, "the 268 Mbp shard (14a)": int32_launches,
+             "torch_scale_human.py (14b)": script_launches}
+    builds = (f"the 2-shard build took {paired_build_s:.1f} s, the single-shard one "
+              f"{records['search_multistep']['wide']['build_s']:.1f} s")
+    return records, paths, builds
+
+
 def main() -> int:
     import torch
 
@@ -2415,7 +2649,6 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     import bwtpu_torch  # noqa: F401  (fails outside a checkout of the repo)
-    from bwtpu_torch.io import write_fasta
     from bwtpu_torch.simulate import simulate_reads
 
     t_all = time.perf_counter()
@@ -2429,32 +2662,18 @@ def main() -> int:
     say(f"  simulated the Read-list reads and phase 5's reads: "
         f"{time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory(prefix="bwtpu_torch_smoke_") as tmp:
-        fa = os.path.join(tmp, "ecoli.fa")
-        write_fasta(fa, [("ecoli_sim", genome)])
-        records, sa1_dir = phase_kernels(tmp, genome, fa, list_reads, reads)
-        phase_phix(tmp, root)
-        idx_dir, launches, p5 = phase_main(tmp, genome, fa, reads, truth)
-        list_launches = phase_read_list(tmp, genome, idx_dir, list_reads, list_truth)
-        locv_launches = phase_locv(tmp, p5, sa1_dir)
-        ab_launches, l2_rate = phase_gather_ab()
-        chain1_l2(records["search_chain1"], l2_rate)
-        rescore_launches = phase_rescore(tmp, genome, idx_dir, list_reads)
-        paired_launches, paired_build_s, p10, records["search_multistep"]["wide"] = \
-            phase_paired(tmp)
-        wide_launches = phase_wide(tmp)
-        ring_launches = phase_ring(tmp, smi, idx_dir, p5["fq"], reads, p10)
-        bench_launches, profile_launches = phase_bench(tmp, smi, root, idx_dir, p5)
-    paths = {"slice 1's path": launches, "the Read-list path": list_launches,
-             "the sa_rate 1 path": locv_launches, "the --rescore path": rescore_launches,
-             "paired-end on 2 shards": paired_launches, "wide reads": wide_launches,
-             "the ring (every rank)": ring_launches, "the gather A/B": ab_launches,
-             "the bench (sections and probe ranks)": bench_launches,
-             "align --profile": profile_launches}
+        # phase 14a's index builds in a process of its own meanwhile
+        index_proc, int32_dir = start_int32_index(root, tmp)
+        try:
+            records, paths, builds = run_phases(tmp, root, smi, genome, list_reads,
+                                                list_truth, reads, truth, index_proc, int32_dir)
+        finally:
+            if index_proc.poll() is None:
+                index_proc.kill()
+                index_proc.wait()
     for what, counts in paths.items():
         say(f"  launches on {what}: {counts}")
-    say(f"[14] all phases passed in {time.perf_counter() - t_all:.1f} s on {smi} "
-        f"(the 2-shard build took {paired_build_s:.1f} s, the single-shard one "
-        f"{records['search_multistep']['wide']['build_s']:.1f} s)")
+    say(f"[15] all phases passed in {time.perf_counter() - t_all:.1f} s on {smi} ({builds})")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[k] for c in paths.values()), **records[k],

@@ -340,8 +340,8 @@ def main(argv=None) -> int:
 
     import torch
 
-    import chip_smoke as cs
     from bwtpu_torch.kernels import _build, searchk
+    from bwtpu_torch.kernels.bounds import bound, multistep_work
 
     if not torch.cuda.is_available():
         print("torch_searchk_ab: no CUDA device", file=sys.stderr)
@@ -369,10 +369,10 @@ def main(argv=None) -> int:
         B = args[6].shape[0]
         T = searchk._shape(*args[9:12], args[15], B, args[14])[0]
         want = searchk.search_multistep_plain(*args)
-        nbytes, ops, what = cs.multistep_work(args)
+        nbytes, ops, what = multistep_work(args)
         rec = {"call": label, "what": what, "T": T, "wide_steps": args[15],
                "trips": int(want[6]), "n_unf": int(want[5].sum()),
-               **cs.bound(nbytes, ops), "sources": {}}
+               **bound(nbytes, ops), "sources": {}}
         leave = None
         for src in sources:
             same = check(src, args, want)
