@@ -1,8 +1,11 @@
 """Alignment engine on torch tensors (counterpart of bwtpu/engine.py).
 
-One or more index shards on one torch device, each dispatched in turn
-(bwtpu's list form; its stacked-vmap and fused-list forms are not
-ported). Two entry points, as in bwtpu:
+One or more index shards on one torch device, dispatched in turn
+(bwtpu's list form) or, with fuse_shards=True, as one program for all
+shards (bwtpu's fused list form: on the card one CUDA graph replay a
+block). bwtpu's stacked-vmap form is not ported: it exists for XLA's
+vmap and costs relayout copies of the tables. Two entry points, as in
+bwtpu:
 
   dispatch_block / finish_block   columnar ReadBlocks of one read length
                                   (tiered=True: exact first, then the
@@ -28,17 +31,24 @@ table (d = 0) run the 1-step pipelines with dense outputs:
   (search_chain1 kernel, then search_chain2 on the stragglers) ->
   compaction -> locate [+ verify at k > 0] -> scatter back
 
-The host assembles every shard's hits with results.py (global positions
-in int64 from each shard's offset, overlap hits deduplicated). Outputs
-equal bwtpu's: the same hit sets, truncation marks, heals and SAM bytes.
-Torch runs eagerly, so the reference's jit program cache has no
-counterpart, and the packed overflow bitmap stays a bool row vector.
+In the "tiered" mode, and in "hits" with the fused form, every shard's
+fixed-shape outputs come to the host in ONE device-to-host copy a block
+(the grouped fetch); the loop form's "hits" fetches every shard's
+scalars in one copy, then each shard's hits up to its count. The host
+assembles every shard's hits with results.py (global positions in int64
+from each shard's offset, overlap hits deduplicated). Outputs equal
+bwtpu's: the same hit sets, truncation marks, heals and SAM bytes. Torch
+runs eagerly; the fused form's graph cache takes the place of the
+reference's jit program cache.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import logging
+import threading
 import time
 from typing import NamedTuple
 
@@ -51,6 +61,7 @@ from bwtpu_torch.golden import Hit
 from bwtpu_torch.index import OCCK_STEP_FROM_WIDTH, FMIndex
 from bwtpu_torch.io import Read
 from bwtpu_torch.results import FlatHits, flatten_hits
+from bwtpu_torch.kernels import _build
 from bwtpu_torch.kernels.common import i32, popcount32
 from bwtpu_torch.kernels.compact import compact, compact_counts, scatter_back
 from bwtpu_torch.kernels.locate import locate_walk
@@ -268,6 +279,13 @@ def _len_mask_words(L: int) -> np.ndarray:
                       np.array([L]))[2][0]
 
 
+@functools.lru_cache(maxsize=None)
+def _len_mask(L: int, device: torch.device) -> torch.Tensor:
+    """_len_mask_words(L) on `device`, made once per (L, device): a copy
+    from the host syncs, and a CUDA graph cannot capture it."""
+    return torch.from_numpy(_len_mask_words(L)).to(device)
+
+
 def _unpack_words(words, L: int, step: int):
     """(B, W) packed words -> (B, L) fields of `step` bits at even slots
     (the shift may be arithmetic: only the masked low bits are kept)."""
@@ -301,7 +319,7 @@ def device_prep_uniform(read_words, amb_bits, L: int, k: int):
     lens2 = torch.full((2 * B,), L, dtype=torch.int32, device=dev)
     rw2 = torch.cat([read_words, _pack_words(rc, W)])
     ab2 = torch.cat([amb_bits, _pack_words(rca, W)])
-    lm2 = torch.from_numpy(_len_mask_words(L)).to(dev).unsqueeze(0).expand(2 * B, W)
+    lm2 = _len_mask(L, dev).unsqueeze(0).expand(2 * B, W)
 
     seeds = None
     if k > 0:
@@ -328,8 +346,7 @@ def device_prep_packed(read_words, amb_bits, L: int):
     rw2 = torch.cat([read_words, rc_w])
     ab2 = torch.cat([amb_bits, rc_a])
     lens2 = torch.full((2 * B,), L, dtype=torch.int32, device=read_words.device)
-    lm = torch.from_numpy(_len_mask_words(L)).to(read_words.device)
-    return rw2, ab2, lens2, lm.unsqueeze(0).expand(2 * B, W)
+    return rw2, ab2, lens2, _len_mask(L, read_words.device).unsqueeze(0).expand(2 * B, W)
 
 
 def pack_reads_for_bench(reads):
@@ -745,15 +762,64 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _fetch_all(tensors) -> list[np.ndarray]:
-    """Bring int32 tensors (any shapes, 0-d included) to the host in ONE
-    device-to-host copy: concatenated, fetched, split."""
-    flat = torch.cat([t.reshape(-1).to(torch.int32) for t in tensors]).cpu().numpy()
-    out, at = [], 0
-    for t in tensors:
-        out.append(flat[at:at + t.numel()].reshape(t.shape))
-        at += t.numel()
-    return out
+def _bitmap(flags: torch.Tensor) -> torch.Tensor:
+    """bool[n] -> int32[ceil(n / 32)]: flag r at bit r % 32 of word r // 32."""
+    n = flags.shape[0]
+    v = torch.cat([flags.to(torch.int64), flags.new_zeros(-n % 32, dtype=torch.int64)])
+    shifts = torch.arange(32, dtype=torch.int64, device=flags.device)
+    return i32((v.view(-1, 32) << shifts).sum(1))
+
+
+def _unbits(words: np.ndarray, n: int) -> np.ndarray:
+    """Inverse of _bitmap on the host: bool[n]."""
+    return np.unpackbits(np.ascontiguousarray(words, "<i4").view(np.uint8),
+                         bitorder="little")[:n].astype(bool)
+
+
+def _fixed_outputs(mode: str, out) -> list:
+    """One shard's outputs of mode "hits" (hits_output) or "tiered"
+    (tiered_pipeline_packed) as the fixed-shape tensors the grouped fetch
+    packs: the scalars of "hits" in one int32[5], the per-row overflow as
+    a bitmap."""
+    if mode == "hits":
+        cand, hm, cnt, n_over, comp_over, hit_over, ov_rows, count = out
+        scal = torch.stack([x.to(torch.int32) for x in (cnt, n_over, comp_over, hit_over,
+                                                        count)])
+        return [cand, hm, scal, _bitmap(ov_rows)]
+    return [*out[:10], _bitmap(out[10] > 0), out[11]]
+
+
+def _pack(mode: str, outs) -> tuple[torch.Tensor, list]:
+    """Every shard's outputs of `mode` as _fixed_outputs in ONE int32
+    buffer, and their shapes (per shard) to split it by."""
+    per_shard = [_fixed_outputs(mode, o) for o in outs]
+    shapes = [[tuple(t.shape) for t in ts] for ts in per_shard]
+    return torch.cat([t.reshape(-1).to(torch.int32) for ts in per_shard for t in ts]), shapes
+
+
+def _fetch_grouped(buf: torch.Tensor, shapes: list) -> list[list[np.ndarray]]:
+    """ONE device-to-host copy of a _pack buffer: per-shard numpy lists."""
+    flat = buf.cpu().numpy()
+    per_shard, at = [], 0
+    for shard in shapes:
+        arrs = []
+        for shape in shard:
+            n = int(np.prod(shape))
+            arrs.append(flat[at:at + n].reshape(shape))
+            at += n
+        per_shard.append(arrs)
+    return per_shard
+
+
+class FusedGraph(NamedTuple):
+    """One captured fused program: its static inputs and packed output."""
+
+    graph: torch.cuda.CUDAGraph
+    rw: torch.Tensor  # int32[Bp, W] static packed reads
+    ab: torch.Tensor  # int32[Bp, W] static ambiguity bits
+    out: torch.Tensor  # int32 packed outputs of every shard
+    shapes: list  # per shard, the shapes to split `out` by
+    launches: dict  # {kernel name: launches the capture recorded}
 
 
 # ---------------------------------------------------------------------------
@@ -769,15 +835,32 @@ class Engine:
     reads, and the host assembles all shards' hits with their text
     lengths and global offsets. device="cuda" runs the CUDA kernels and
     raises when CUDA is absent; device="cpu" runs their plain-torch
-    versions (the tests)."""
+    versions (the tests).
 
-    def __init__(self, shards: list[FMIndex], device="cuda"):
+    fuse_shards=True (bwtpu's fused list form, off by default as there):
+    with more than one shard, the "hits" and "tiered" block modes run
+    every shard's pipeline as ONE program (_dispatch_fused) whose outputs
+    land in one int32 buffer. On the card the program is captured once
+    per capacity key into a CUDA graph and each block is one replay; a
+    capture or replay that fails raises. "compact", "dense" and Read
+    lists stay per shard, as in bwtpu."""
+
+    def __init__(self, shards: list[FMIndex], device="cuda", fuse_shards: bool = False):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda'): no CUDA device is available")
         self.shards = shards
         self.config = shards[0].config
         self.dev_shards = upload_index(shards, self.device)
+        self.fuse_shards = fuse_shards
+        # the fused form's CUDA graphs by key, the seconds each took to
+        # warm up and capture, and each key's replays so far; one lock orders
+        # capture, input copy, replay and output copy across threads (the
+        # CLI finishes blocks, and heals, on a worker thread)
+        self._graphs: dict = {}
+        self.captures: dict = {}
+        self.graph_replays = collections.Counter()
+        self._graph_lock = threading.Lock()
         self.kmer_depths = sorted(shards[0].kmer_tables)
         self.stats = BatchStats()
         # occupancy channel: max observed candidate-stage and hit live
@@ -1064,41 +1147,112 @@ class Engine:
         tiered=True at k > 0 (tiered_pipeline_packed; without the
         multi-step lattice the full inexact pipeline runs instead, whose
         results are a superset of the tiered contract). The packed reads
-        go to the device once for all shards. Returns a handle for
-        finish_block."""
+        go to the device once for all shards (_upload_block); "hits" and
+        "tiered" take the fused form with fuse_shards and more than one
+        shard. Returns a handle for finish_block."""
+        k = self.config.k if k is None else k
+        return self._dispatch_packed(block, *self._upload_block(block, pad_to), k, _level,
+                                     tiered)
+
+    def _upload_block(self, block, pad_to: int | None):
+        """The block's packed forward reads on the device, padded to pad_to
+        rows: (rw, ab, Bp). The one host sync of a dispatch."""
         from bwtpu_torch.readblock import pack_block
 
-        k = self.config.k if k is None else k
-        L = block.L
-        if not (0 < L <= self.config.read_len):
-            raise ValueError(f"block read length {L} not in (0, {self.config.read_len}]")
+        if not (0 < block.L <= self.config.read_len):
+            raise ValueError(f"block read length {block.L} not in (0, {self.config.read_len}]")
         rw, ab = pack_block(block)
         Bp = pad_to or block.n
         if Bp > block.n:
             W = rw.shape[1]
             rw = np.concatenate([rw, np.zeros((Bp - block.n, W), np.int32)])
             ab = np.concatenate([ab, np.full((Bp - block.n, W), 0x55555555, np.int32)])
-        rw, ab = self._put(rw), self._put(ab)
+        return self._put(rw), self._put(ab), Bp
+
+    def _dispatch_packed(self, block, rw, ab, Bp: int, k: int, level: int, tiered: bool):
+        """dispatch_block once the reads are on the device."""
+        L = block.L
         d = pick_kmer_depth(self.kmer_depths, L if k == 0 else L // (k + 1))
         compact_out = self._multistep(d)
-        if tiered and k > 0 and compact_out:
-            outs = [self._run_tiered(sh, rw, ab, L, k, _level) for sh in self.dev_shards]
-            return ("block", block, Bp, k, outs, time.perf_counter(), "tiered", _level)
-        if tiered and k > 0:
+        if tiered and k > 0 and not compact_out:
             log.debug("tiered dispatch unavailable without the multi-step "
                       "lattice; running the full inexact pipeline")
-        mh, mc, lf, hf = self._caps(k, _level)
+        tiered = tiered and k > 0 and compact_out
+        mh, mc, _, _ = self._caps(k, level)
         Ct = (k + 1) * mc if k else mh
-        hits = compact_out and 2 * Bp * Ct * 4 < HIT_PAYLOAD_MAX
-        outs = []
+        if tiered or (compact_out and 2 * Bp * Ct * 4 < HIT_PAYLOAD_MAX):
+            mode = "tiered" if tiered else "hits"
+            run = functools.partial(self._shard_outputs, L=L, k=k, d=d, level=level,
+                                    mode=mode)
+            if self.fuse_shards and len(self.dev_shards) > 1:
+                # bwtpu's _packed_fn key (mode, k, d, L, both tiers' caps)
+                # plus the heal level, the rows and the wide steps
+                key = (mode, k, d, L, level, self._caps(k, level),
+                       self._caps(0, level) if tiered else None, Bp, self._wide_steps(d))
+                outs = self._dispatch_fused(lambda rw, ab: _pack(mode, run(rw, ab)), rw, ab,
+                                            key)
+            else:
+                outs = run(rw, ab)
+            return ("block", block, Bp, k, outs, time.perf_counter(), mode, level)
+        outs = [self._run_packed(sh, rw, ab, L, k, d, level) for sh in self.dev_shards]
+        mode = "compact" if compact_out else "dense"
+        return ("block", block, Bp, k, outs, time.perf_counter(), mode, level)
+
+    def _shard_outputs(self, rw, ab, *, L: int, k: int, d: int, level: int,
+                       mode: str) -> list:
+        """Every shard's "hits" (_run_packed + hits_output) or "tiered"
+        (_run_tiered) outputs on packed reads already on the device. The
+        loop form runs this eagerly, the fused form inside one CUDA graph:
+        nothing here syncs with the host."""
+        if mode == "tiered":
+            return [self._run_tiered(sh, rw, ab, L, k, level) for sh in self.dev_shards]
+        mh, mc, _, hf = self._caps(k, level)
+        Ct = (k + 1) * mc if k else mh
+        per_shard = []
         for sh in self.dev_shards:
-            out = self._run_packed(sh, rw, ab, L, k, d, _level)
-            if hits:
-                hit_cap = min(out[2].shape[0], compact_cap(2 * Bp, hf, 1 << _level))
-                out = hits_output(out, k=k, Ct=Ct, hit_cap=hit_cap)
-            outs.append(out)
-        mode = "hits" if hits else ("compact" if compact_out else "dense")
-        return ("block", block, Bp, k, outs, time.perf_counter(), mode, _level)
+            out = self._run_packed(sh, rw, ab, L, k, d, level)
+            hit_cap = min(out[2].shape[0], compact_cap(2 * rw.shape[0], hf, 1 << level))
+            per_shard.append(hits_output(out, k=k, Ct=Ct, hit_cap=hit_cap))
+        return per_shard
+
+    def _dispatch_fused(self, run, rw, ab, key: tuple):
+        """The fused form: `run` (every shard's pipeline, its outputs packed
+        into one int32 buffer: (buffer, shapes)) as ONE program; returns
+        ("fused", buffer, shapes). On the CPU it runs eagerly. On the card
+        the first block of a key runs once eagerly on a side stream (kernel
+        builds, library and allocator set-up), is captured into a CUDA
+        graph, and every block is then one replay. The buffer is copied out of the graph's
+        pool, so a later replay never overwrites a handle still in flight."""
+        if self.device.type != "cuda":
+            return ("fused", *run(rw, ab))
+        with self._graph_lock:
+            g = self._graphs.get(key) or self._capture(key, run, rw, ab)
+            g.rw.copy_(rw)
+            g.ab.copy_(ab)
+            g.graph.replay()
+            # the replay's kernels run without their wrappers: no launch
+            # counter moves (g.launches is what the capture recorded)
+            self.graph_replays[key] += 1
+            return ("fused", g.out.clone(), g.shapes)
+
+    def _capture(self, key: tuple, run, rw, ab) -> FusedGraph:
+        """Warm `run` up on a side stream, then capture it into a CUDA
+        graph on static copies of rw and ab (cached under key)."""
+        t0 = time.perf_counter()
+        srw, sab = rw.clone(), ab.clone()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            run(srw, sab)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        t1 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with _build.recording() as launches, torch.cuda.graph(
+                graph, capture_error_mode="thread_local"):
+            out, shapes = run(srw, sab)
+        self.captures[key] = {"warmup_s": t1 - t0, "capture_s": time.perf_counter() - t1}
+        self._graphs[key] = FusedGraph(graph, srw, sab, out, shapes, launches)
+        return self._graphs[key]
 
     def finish_block(self, handle) -> FlatHits:
         """Materialize a dispatch_block handle -> results.FlatHits.
@@ -1115,19 +1269,31 @@ class Engine:
         Ct = (k + 1) * mc if k else mh
         cfg = self.config
         can_heal = cfg.heal_overflow and level < cfg.max_heals
-        hit_over = 0
+        n_over = compact_over = hit_over = 0
+        per_shard = None
+        if isinstance(outs, tuple):  # the fused form's buffer
+            per_shard = _fetch_grouped(*outs[1:])
+        elif mode == "tiered":  # every shard's 12 outputs in one copy
+            per_shard = _fetch_grouped(*_pack(mode, outs))
         if mode == "hits":
-            # every shard's scalars in one transfer
-            scal = torch.stack([x.to(torch.int64) for o in outs
-                                for x in (o[2], o[3], o[4], o[5], o[7])]).view(-1, 5).tolist()
+            if per_shard is not None:
+                # each shard's hits at hit_cap, its scalars, its overflow bitmap
+                scal = [s[2].tolist() for s in per_shard]
+                hits = [(s[0][:r[0]], s[1][:r[0]]) for s, r in zip(per_shard, scal)]
+                ov_rows = _unbits(np.bitwise_or.reduce([s[3] for s in per_shard]), 2 * Bp)
+            else:
+                # every shard's scalars in one transfer, then its hits up to
+                # its count (fewer bytes than every shard's full hit buffer)
+                scal = torch.stack([x.to(torch.int64) for o in outs
+                                    for x in (o[2], o[3], o[4], o[5], o[7])]).view(-1, 5).tolist()
+                hits = [(_np(o[0][:r[0]]), _np(o[1][:r[0]])) for o, r in zip(outs, scal)]
+                ov_rows = torch.stack([o[6] for o in outs]).any(0)
             shard_comp = []
-            for o, (cnt, _, _, _, cand_live) in zip(outs, scal):
-                hm = _np(o[1][:cnt])
-                shard_comp.append((_np(o[0][:cnt]), hm % 4, hm // 4, cnt))
+            for (cand, hm), (cnt, _, _, _, cand_live) in zip(hits, scal):
+                shard_comp.append((cand, hm % 4, hm // 4, cnt))
                 self._observe(self._cand_live_frac, k, cand_live, Bp)
                 self._observe(self._hit_live_frac, k, cnt, Bp)
             n_over, compact_over, hit_over = (sum(r[i] for r in scal) for i in (1, 2, 3))
-            ov_rows = torch.stack([o[6] for o in outs]).any(0)
         elif mode == "compact":
             scal = torch.stack([x.to(torch.int64) for o in outs
                                 for x in (o[3], (o[4] > 0).sum(), o[5])]).view(-1, 3).tolist()
@@ -1139,15 +1305,13 @@ class Engine:
             ov_rows = torch.stack([o[4] > 0 for o in outs]).any(0)
         elif mode == "tiered":
             mh0 = self._caps(0, level)[0]
-            cols, compact_over, ov_rows = [], 0, None
-            for s, out in enumerate(outs):
-                # the 12 outputs in one grouped transfer
-                out_np = _fetch_all(out)
+            cols, ov_rows = [], False
+            for s, out_np in enumerate(per_shard):
+                out_np[10] = _unbits(out_np[10], 2 * Bp)
                 rows_t, p_t, m_t, _, co_s = tiered_to_columns(out_np, mh0, mc, k, Bp)
                 cols.append((np.full(len(rows_t), s, np.int64), rows_t, p_t, m_t))
                 compact_over += co_s
-                ov = out_np[10] > 0
-                ov_rows = ov if ov_rows is None else ov_rows | ov
+                ov_rows = ov_rows | out_np[10]
                 # per shard and at every heal level, as bwtpu counts it
                 # (reference fault C.2)
                 self.stats.escalated += int(out_np[9])
@@ -1161,7 +1325,9 @@ class Engine:
         if (n_over or compact_over or hit_over) and can_heal:
             return self._heal_block(block, k, Bp, level, n_over,
                                     compact_over + hit_over, tiered=mode == "tiered")
-        trunc_rows = (ov_rows if mode == "tiered" else _np(ov_rows)) if n_over else None
+        trunc_rows = None
+        if n_over:
+            trunc_rows = ov_rows if isinstance(ov_rows, np.ndarray) else _np(ov_rows)
         if hit_over:
             log.warning(
                 "align block: hit buffer overflowed by %d hits after %d heals "

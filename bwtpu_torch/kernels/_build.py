@@ -10,6 +10,7 @@ at import. `build_all` starts one nvcc per source at once.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -187,13 +188,64 @@ def check_tensor(kernel: str, name: str, t: torch.Tensor, dtype, ndim: int,
 
 
 _count_lock = threading.Lock()
+_capture = threading.local()  # .tally: launches recorded into a CUDA graph
 
 
 def count_launch(wrapper) -> None:
     """Add one to a kernel wrapper's `launches` counter (the finish thread
-    of the CLI launches too, hence the lock)."""
+    of the CLI launches too, hence the lock). Inside `recording()` the
+    launch is recorded into a CUDA graph, not run, and is tallied there
+    instead. A replay runs it without calling the wrapper, so no counter
+    sees a replay: `launches_in_trace` counts what one ran."""
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+        return
     with _count_lock:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """While this thread captures a CUDA graph: yields {kernel name:
+    launches} of the kernels the graph holds, which the counters do not
+    see (filled when the block ends)."""
+    _capture.tally = tally = {}
+    names = {}
+    try:
+        yield names
+    finally:
+        _capture.tally = None
+        name_of = {fn: n for n, fn in _wrappers().items()}
+        names.update((name_of[fn], n) for fn, n in tally.items())
+
+
+# each wrapper's __global__ function(s) that run once for each of its
+# launches (search_multistep's exit kernel runs once a call; its search
+# kernel only when there are lanes)
+DEVICE_FUNCS = {
+    "sw_band": ("sw_band_kernel",), "locate_walk": ("locate_walk_kernel",),
+    "verify_nm": ("verify_nm_kernel", "verify_nm_wide_kernel"),
+    "search_chain1": ("search_chain1_kernel",),
+    "search_chain2": ("chain2_packed_kernel", "chain2_planes_kernel"),
+    "search_multistep": ("exit_kernel",), "verify_locv": ("verify_locv_kernel",),
+    "row_gather_sum": ("row_gather_sum_kernel",),
+}
+_FUNC = re.compile(r"(?<!\w)(" + "|".join(f for fs in DEVICE_FUNCS.values() for f in fs)
+                   + r")(?!\w)")
+
+
+def launches_in_trace(names) -> dict:
+    """{kernel name: launches} from the names of a trace's device kernel
+    events (torch.profiler): the launches a CUDA graph replay runs, which
+    no wrapper counts, measured."""
+    wrapper_of = {f: n for n, fs in DEVICE_FUNCS.items() for f in fs}
+    out = dict.fromkeys(DEVICE_FUNCS, 0)
+    for name in names:
+        m = _FUNC.search(name)
+        if m:
+            out[wrapper_of[m.group(1)]] += 1
+    return out
 
 
 def _wrappers() -> dict:

@@ -79,6 +79,20 @@ Phases, in order; any failure raises and the exit code is not 0:
      and 2: every search_multistep call with wide_steps 1, the first of
      each k held against its plain version, timed, bounded and floored as
      in phase 3, and the block's truth;
+ 10b. the fused multi-shard dispatch on phase 10's 2-shard index:
+     Engine(fuse_shards=True), one CUDA graph replay a block, with four
+     blocks of 16,384 mate-1 reads in flight at k = 0, k = 2 (hit_factor
+     0.5: one heal a block) and tiered k = 2, in turns with the loop
+     form (loop, fused, fused, loop): hits, truncation flags and
+     BatchStats equal to the loop's; each mode's dispatch in both forms
+     under sync debug mode "error" once the reads are on the card; each
+     mode's fused run once more under torch.profiler, its launches
+     counted from the trace's kernel names and equal to what each
+     replayed graph's capture recorded (a replay calls no wrapper, so
+     these measured counts are the path's launches); a window of one
+     replayed dispatch_block with one graph launch and no kernel launch;
+     the dispatch and finish walls and each graph's warm-up and capture
+     printed, not gated;
  11. wide reads: `build-index --read-len 400` of a 1 Mbp random genome,
      4,096 reads of 400 bp at k = 2 through the port CLI (verify_nm's
      run-time-W instance): truth, brute force on 256 sampled reads, the
@@ -131,7 +145,10 @@ Phases, in order; any failure raises and the exit code is not 0:
           scale_human_chip.py's (read with ast), every truth recovered,
           every hit sound, no overflowed read, search_multistep launched in
           both halves and search_chain2, locate_walk and verify_nm in the
-          card half.
+          card half; then its card half again on the kept artifact with
+          --fuse: the same checks, fused_dispatch true, graphs replayed,
+          and the same hits sound as the loop's (its launches: only the
+          eager warm-ups, the replays' are not counted).
      Cuts: 14a is 1 shard of a human genome's 10, at its own offset of 0;
      14b is 40 Mbp of 2.5 Gbp. Positions past 2^31 on the card come only
      from the script's full-size run, not from this smoke;
@@ -148,6 +165,7 @@ oracles (the golden SAM, truth, brute force, the plain versions).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -1773,6 +1791,165 @@ def multistep_wide(tmp: str, fa: str, mates1, pos1, nm1) -> dict:
     return out
 
 
+FUSED_MODES = ((0, False), (2, False), (2, True))  # phase 10b: (k, tiered)
+
+
+def fused_run(eng, blks, k: int, tiered: bool) -> tuple:
+    """Every block dispatched before the first finish_block (four in flight,
+    as the CLI keeps them): (FlatHits columns and truncation flags per
+    block, the run's BatchStats without its times, dispatch wall, finish
+    wall) on fresh stats."""
+    from bwtpu_torch.engine import BatchStats
+
+    eng.stats = BatchStats()
+    t0 = time.perf_counter()
+    handles = [eng.dispatch_block(b, k, pad_to=BATCH, tiered=tiered) for b in blks]
+    t1 = time.perf_counter()
+    flats = [eng.finish_block(h) for h in handles]
+    t2 = time.perf_counter()
+    cols = [tuple(getattr(f, n).tobytes() for n in ("read_idx", "pos", "strand_rev", "nm"))
+            + (None if f.truncated is None else f.truncated.tobytes(),) for f in flats]
+    return cols, dict(vars(eng.stats), device_s=0, host_s=0), t1 - t0, t2 - t1
+
+
+def fused_no_sync(eng, blk, k: int, tiered: bool) -> None:
+    """Once the reads are on the card, a dispatch must not sync with the
+    host (sync debug mode "error"); its hits equal a plain dispatch's."""
+    import torch
+
+    want = fused_run(eng, [blk], k, tiered)[0]
+    rw, ab, Bp = eng._upload_block(blk, BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = eng._dispatch_packed(blk, rw, ab, Bp, k, 0, tiered)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    f = eng.finish_block(handle)
+    got = tuple(getattr(f, n).tobytes() for n in ("read_idx", "pos", "strand_rev", "nm"))
+    require(got == want[0][:4], f"k={k} tiered={tiered}: the dispatch under sync debug differs")
+
+
+def fused_traced(eng, blks, k: int, tiered: bool) -> tuple:
+    """fused_run under torch.profiler, every key already captured: (its
+    result, cudaGraphLaunch calls, cudaLaunchKernel calls, device events,
+    the launches measured from the trace's kernel names). The measured
+    launches must equal, kernel by kernel, what each replayed graph's
+    capture recorded times its replays, with no graph captured and no
+    launch counter moved (a replay calls no wrapper); a window whose trace
+    falls short of that is retried, up to three in all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bwtpu_torch.kernels import _build
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        n_graphs, replays = len(eng._graphs), collections.Counter(eng.graph_replays)
+        before = read_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = fused_run(eng, blks, k, tiered)
+            torch.cuda.synchronize()
+        require(len(eng._graphs) == n_graphs and read_launches() == before,
+                f"k={k} tiered={tiered}: a traced fused run captured a graph or launched "
+                f"through a wrapper")
+        ran = eng.graph_replays - replays
+        want = dict.fromkeys(KERNELS, 0)
+        for key, n in ran.items():
+            for name, c in eng._graphs[key].launches.items():
+                want[name] += n * c
+        events = prof.events()
+        dev = [e.name for e in events if e.device_type == DeviceType.CUDA]
+        measured = _build.launches_in_trace(dev)
+        graph = sum("GraphLaunch" in e.name for e in events)
+        kernel = sum("LaunchKernel" in e.name for e in events)
+        if measured == want and graph == ran.total():
+            return res, graph, kernel, len(dev), measured
+    raise RuntimeError(f"chip_smoke: check failed: k={k} tiered={tiered}: {graph} graph "
+                       f"launches for {ran.total()} replays; launches in the trace "
+                       f"{measured}, the captures recorded {want}")
+
+
+def phase_fused(p10) -> dict:
+    """10b: Engine(fuse_shards=True), every shard's pipeline as one CUDA
+    graph replay a block, on phase 10's 2-shard index with four blocks of
+    16,384 mate-1 reads in flight, hit_factor 0.5: at k = 0, k = 2 (which
+    heals once a block) and tiered k = 2, the fused form in turns with the loop
+    form (loop, fused, fused, loop), every run's hits, truncation flags
+    and BatchStats equal to the first loop run's; the dispatch under sync
+    debug mode "error" in both forms; each mode's fused run once more
+    under torch.profiler, its hits equal, its kernel launches measured
+    from the trace by name (fused_traced); one replayed dispatch alone: one
+    graph launch, no kernel launch; the walls and each graph's capture
+    printed, not gated. Returns the fused runs' launches: the wrappers'
+    (the eager warm-ups) and the traced replays' measured ones."""
+    import dataclasses
+
+    import torch
+
+    from bwtpu_torch.engine import Engine
+    from bwtpu_torch.index import load_index
+    from bwtpu_torch.readblock import read_fastq_stream
+
+    t0 = time.perf_counter()
+    idx_dir, fq1, _ = p10
+    # hit_factor 0.5: ~0.66 verified hits a lane at k = 2 overflow the hit
+    # buffer, so each k = 2 block heals once (through the fused form too)
+    shards = [dataclasses.replace(s, config=s.config.replace(hit_factor=0.5))
+              for s in load_index(idx_dir)[0]]
+    blks = list(read_fastq_stream(fq1, BATCH)[2])
+    say(f"[10b] fused dispatch on phase 10's 2-shard index: {len(blks)} blocks of {BATCH} "
+        f"mate-1 reads in flight")
+    engines = {False: Engine(shards, device="cuda"),
+               True: Engine(shards, device="cuda", fuse_shards=True)}
+    launches = dict.fromkeys(KERNELS, 0)
+    torch.cuda.empty_cache()  # what stays reserved after the phase: the graphs' pools
+    mem0 = torch.cuda.memory_reserved()
+    for k, tiered in FUSED_MODES:
+        runs = []
+        for fuse in (False, True, True, False):
+            reset_launches()
+            runs.append((fuse, *fused_run(engines[fuse], blks, k, tiered)))
+            if fuse:
+                launches = {n: launches[n] + c for n, c in read_launches().items()}
+        want = runs[0][1:3]
+        require(all(r[1:3] == want for r in runs),
+                f"k={k} tiered={tiered}: the fused form differs from the loop form")
+        require(k == 0 or tiered or want[1]["heals"] >= 1,
+                f"k={k}: no heal ({want[1]})")
+        walls = [f"{'fused' if f else 'loop'} {d * 1e3:.1f} + {w * 1e3:.1f}"
+                 for f, _, _, d, w in runs]
+        say(f"  k={k}{' tiered' if tiered else ''}: fused == loop (hits, truncation, stats: "
+            f"heals {want[1]['heals']}, escalated {want[1]['escalated']}); dispatch + finish "
+            f"ms of {len(blks)} blocks, in turns: {'; '.join(walls)}")
+        res, graph, kernel, device, measured = fused_traced(engines[True], blks, k, tiered)
+        require(res[:2] == want, f"k={k} tiered={tiered}: the traced fused run differs")
+        launches = {n: launches[n] + c for n, c in measured.items()}
+        say(f"  traced fused run: {graph} graph launches, {kernel} kernel launches, {device} "
+            f"device events; launches measured by kernel name, equal to the captures' "
+            f"record: { {n: c for n, c in measured.items() if c} }")
+    for fuse in (False, True):
+        for k, tiered in FUSED_MODES:
+            fused_no_sync(engines[fuse], blks[0], k, tiered)
+    say("  the dispatch of each mode ran under torch.cuda.set_sync_debug_mode('error') in "
+        "both forms, its hits equal")
+    # one replayed dispatch alone (k = 0, a captured key), not counted
+    _, graph, kernel, device, one = fused_traced(engines[True], blks[1:2], 0, False)
+    require(graph == 1 and kernel == 0,
+            f"a replayed fused dispatch_block: {graph} graph launches, {kernel} kernel launches")
+    caps = [f"{key[0]} k={key[1]} level {key[4]}: {v['warmup_s'] * 1e3:.0f} + "
+            f"{v['capture_s'] * 1e3:.0f} ms" for key, v in engines[True].captures.items()]
+    torch.cuda.empty_cache()
+    say(f"  one replayed fused dispatch_block under torch.profiler: {graph} graph launch, "
+        f"{kernel} kernel launches, {device} device events, "
+        f"{ {n: c for n, c in one.items() if c} } launched; graphs (warm-up + capture): "
+        f"{'; '.join(caps)}; {(torch.cuda.memory_reserved() - mem0) / 1e6:.0f} MB more "
+        f"reserved, {engines[True].graph_replays.total()} replays; phase 10b "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def phase_wide(tmp: str):
     """Wide reads: `build-index --read-len 400` of a 1 Mbp random genome,
     4,096 reads of 400 bp (<= 2 substitutions) at k = 2 through the port
@@ -2448,10 +2625,21 @@ def start_scale_script(root: str, tmp: str):
     shards of ~4 Mbp), both halves, small batches and --tiered, in a
     session of its own, its output to files; returns (process, output
     path, start time)."""
-    cmd = [sys.executable, os.path.join(root, "scripts", "torch_scale_human.py"),
-           "--bp", "40000000", "--jobs", "4", "--out", os.path.join(tmp, "human_small"),
-           "--batch", "8192", "--k2-batch", "8192", "--n-truth", "1024", "--tiered"]
-    out = os.path.join(tmp, "scale_human.out")
+    return scale_script(root, tmp, "scale_human", "--bp", "40000000", "--jobs", "4", "--keep")
+
+
+SCALE_SMALL = ("--batch", "8192", "--k2-batch", "8192", "--n-truth", "1024", "--tiered")
+
+
+def scale_script(root: str, tmp: str, name: str, *argv):
+    """scripts/torch_scale_human.py on the 40 Mbp artifact (tmp/human_small)
+    with small batches and --tiered, in a session of its own, its output to
+    tmp/<name>.out; returns (process, output path, start time)."""
+    cmd = [sys.executable, os.path.join(root, "scripts", "torch_scale_human.py"), *argv,
+           *SCALE_SMALL]
+    if "--index" not in argv:
+        cmd += ["--out", os.path.join(tmp, "human_small")]
+    out = os.path.join(tmp, f"{name}.out")
     with open(out, "w") as f:
         proc = subprocess.Popen(cmd, cwd=root, env=dict(os.environ, SCALE_HUMAN_ALLOW_SMALL="1"),
                                 stdout=f, stderr=subprocess.STDOUT, text=True,
@@ -2468,16 +2656,9 @@ def stop_session(proc) -> None:
         proc.wait()
 
 
-def phase_scale_script(root: str, run) -> dict:
-    """14b: the wiring of scripts/torch_scale_human.py, started by
-    start_scale_script: rc 0, both JSON lines with every key of the
-    reference scripts', every truth recovered (the sample's and the card
-    half's), every hit sound, no overflowed read, search_multistep
-    launched in both halves and search_chain2, locate_walk and verify_nm
-    in the card half. Returns the launches of both halves."""
-    proc, path, t0 = run
-    say("[14] 14b: scripts/torch_scale_human.py --bp 40000000 (10 shards), small batches, "
-        "--tiered")
+def script_lines(run, what: str) -> list:
+    """Wait for a run of the scale script (scale_script); its JSON lines."""
+    proc, path, _ = run
     try:
         proc.wait(timeout=SCALE_TIMEOUT)
     finally:
@@ -2486,31 +2667,69 @@ def phase_scale_script(root: str, run) -> dict:
         out = f.read()
     if proc.returncode != 0:
         say(out[-8000:])
-    require(proc.returncode == 0, f"torch_scale_human.py exited with {proc.returncode}")
-    build, card, chip = json_lines(out)
-    want_build, want_chip = scale_human_keys(root)
-    require(want_build <= set(build) and want_chip <= set(chip),
-            f"14b: keys missing: {sorted(want_build - set(build))} "
-            f"{sorted(want_chip - set(chip))}")
-    require(build["truth_recovered"] == build["sample_reads"]
-            and build["recovered_beyond_int32"] == build["truth_beyond_int32"]
-            and chip["truth_recovered"] == chip["truth_reads"]
+    require(proc.returncode == 0, f"{what} exited with {proc.returncode}")
+    return json_lines(out)
+
+
+def check_card_half(card: dict, chip: dict, want_chip: set, what: str) -> None:
+    """The card half's line: every key of scale_human_chip.py's, truth, every
+    hit sound, no overflowed read, the kernels launched."""
+    require(want_chip <= set(chip), f"{what}: keys missing: {sorted(want_chip - set(chip))}")
+    require(chip["truth_recovered"] == chip["truth_reads"]
             and chip["recovered_beyond_int32"] == chip["truth_beyond_int32"]
             and chip["unsound_hits"] == 0 and chip["sound_hits"] > 0
-            and chip["overflow_reads"] == 0 and chip["platform"] == "cuda",
-            f"14b: {build} {chip}")
-    lb, lc = build["launches"], card["launches"]
-    require(lb["search_multistep"] > 0 and all(
-        lc[n] > 0 for n in ("search_multistep", "search_chain2", "locate_walk", "verify_nm")),
-            f"14b: launches {lb} {lc}")
+            and chip["overflow_reads"] == 0 and chip["platform"] == "cuda", f"{what}: {chip}")
+    lc = card["launches"]
+    require(all(lc[n] > 0 for n in ("search_multistep", "search_chain2", "locate_walk",
+                                    "verify_nm")), f"{what}: launches {lc}")
+
+
+def phase_scale_script(root: str, tmp: str, run) -> dict:
+    """14b: the wiring of scripts/torch_scale_human.py, started by
+    start_scale_script: rc 0, both JSON lines with every key of the
+    reference scripts', every truth recovered (the sample's and the card
+    half's), every hit sound, no overflowed read, search_multistep
+    launched in both halves and search_chain2, locate_walk and verify_nm
+    in the card half; then its card half again on the kept artifact with
+    --fuse: the same checks, fused_dispatch true, each graph's capture
+    listed, and the same hits checked as the loop's. Returns the launches
+    of the three halves."""
+    say("[14] 14b: scripts/torch_scale_human.py --bp 40000000 (10 shards), small batches, "
+        "--tiered; then its card half with --fuse")
+    t0 = run[2]
+    build, card, chip = script_lines(run, "torch_scale_human.py")
+    want_build, want_chip = scale_human_keys(root)
+    require(want_build <= set(build), f"14b: keys missing: {sorted(want_build - set(build))}")
+    require(build["truth_recovered"] == build["sample_reads"]
+            and build["recovered_beyond_int32"] == build["truth_beyond_int32"], f"14b: {build}")
+    check_card_half(card, chip, want_chip, "14b")
+    require(build["launches"]["search_multistep"] > 0, f"14b: launches {build['launches']}")
+    require(chip["fused_dispatch"] is False, "14b: fused_dispatch without --fuse")
     for line in (build, card, chip):
         say(f"  {json.dumps(line)}")
+    lb, lc = build["launches"], card["launches"]
     say(f"  14b: rc 0 in {time.perf_counter() - t0:.1f} s; both lines carry every key of "
         f"scale_human.py's and scale_human_chip.py's; truth {build['truth_recovered']}/"
         f"{build['sample_reads']} and {chip['truth_recovered']}/{chip['truth_reads']}, "
         f"{chip['sound_hits']} hits sound; search_chain1 launched {lb['search_chain1']} + "
         f"{lc['search_chain1']} times (uniform 100 bp reads take the packed path)")
-    return {n: lb[n] + lc[n] for n in lb}
+    t0 = time.perf_counter()
+    fcard, fchip = script_lines(scale_script(root, tmp, "scale_human_fuse", "--index",
+                                             os.path.join(tmp, "human_small"), "--fuse"),
+                                "torch_scale_human.py --fuse")
+    check_card_half(fcard, fchip, want_chip, "14b --fuse")
+    require(fchip["fused_dispatch"] is True and fcard["graph_captures"]
+            and fcard["graph_replays"] > 0 and fcard["multistep_calls"] is None
+            and fchip["sound_hits"] == chip["sound_hits"],
+            f"14b --fuse: {fchip} {fcard['graph_captures']}")
+    for line in (fcard, fchip):
+        say(f"  {json.dumps(line)}")
+    say(f"  14b --fuse: rc 0 in {time.perf_counter() - t0:.1f} s; fused_dispatch true; "
+        f"{len(fcard['graph_captures'])} graphs, {fcard['graph_replays']} replays (their "
+        f"launches not counted: only the graphs' eager warm-ups are); truth "
+        f"{fchip['truth_recovered']}/{fchip['truth_reads']}; the same "
+        f"{fchip['sound_hits']} hits sound as the loop's")
+    return {n: lb[n] + lc[n] + fcard["launches"][n] for n in lb}
 
 
 KERNELS = {  # name: (source, TPU kernel (or jnp code) it replaces)
@@ -2614,6 +2833,7 @@ def run_phases(tmp: str, root: str, smi: str, genome: str, list_reads, list_trut
     rescore_launches = phase_rescore(tmp, genome, idx_dir, list_reads)
     paired_launches, paired_build_s, p10, records["search_multistep"]["wide"] = \
         phase_paired(tmp)
+    fused_launches = phase_fused(p10)
     wide_launches = phase_wide(tmp)
     ring_launches = phase_ring(tmp, smi, idx_dir, p5["fq"], reads, p10)
     bench_launches, profile_launches = phase_bench(tmp, smi, root, idx_dir, p5)
@@ -2623,13 +2843,14 @@ def run_phases(tmp: str, root: str, smi: str, genome: str, list_reads, list_trut
     script = start_scale_script(root, tmp)  # 14b runs beside 14a's brute force
     try:
         int32_brute_force(*bf_args)
-        script_launches = phase_scale_script(root, script)
+        script_launches = phase_scale_script(root, tmp, script)
     finally:
         stop_session(script[0])
     say(f"  phase 14: {time.perf_counter() - t0:.1f} s")
     paths = {"slice 1's path": launches, "the Read-list path": list_launches,
              "the sa_rate 1 path": locv_launches, "the --rescore path": rescore_launches,
-             "paired-end on 2 shards": paired_launches, "wide reads": wide_launches,
+             "paired-end on 2 shards": paired_launches,
+             "the fused dispatch on 2 shards (10b)": fused_launches, "wide reads": wide_launches,
              "the ring (every rank)": ring_launches, "the gather A/B": ab_launches,
              "the bench (sections and probe ranks)": bench_launches,
              "align --profile": profile_launches, "the 268 Mbp shard (14a)": int32_launches,

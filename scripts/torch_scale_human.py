@@ -20,21 +20,36 @@ global position and strand (within k substitutions, nm equal); k <= 2
 and, with --tiered, tiered reads/s. Prints one line of its own (the
 card's name and power limit, peak device memory, the depth kept and its
 wide steps, search_multistep calls with and without a wide phase, one
-such call's device ms against its bound, kernel launches, and for each
-rate one more pass of its 2 blocks under torch.profiler: wall, device
-busy time and share, the kernels that took most), then
+such call's device ms against its bound, kernel launches, for each rate
+one more pass of its 2 blocks under torch.profiler: wall, device busy
+time and share, the kernels that took most, and per block of the timed
+passes the dispatch_block wall split into packing the reads, their upload
+(the wait for the card included) and the rest (issue), and the
+finish_block wall split into the fetch (its device-to-host copies, the
+wait for the card included) and the rest (host assembly), and with
+--fuse each CUDA graph's warm-up and capture seconds), then
 scale_human_chip.py's JSON line with its keys and these: sound_hits,
 unsound_hits.
 
+--fuse, as in scale_human_chip.py, runs the engines with
+fuse_shards=True: each block is one CUDA graph replay for all shards.
+A replay calls no wrapper, so on the card the line's search_multistep
+calls read null, its launches count only the eager runs (each graph's
+warm-up), and graph_replays counts the replays. --package DIR
+imports bwtpu_torch from DIR instead (the A/B against an earlier tree,
+unpacked with `git archive`).
+
 Differences from the two scripts: the sample aligns through Engine (one
 process, every shard in turn) where scale_human.py used a 10-device CPU
-DistEngine; the artifact goes to the temp directory by default; there is
-no --fuse (the port has no fused dispatch). Nothing falls back to the
-CPU: without a card the run fails unless --device cpu.
+DistEngine; the artifact goes to the temp directory by default. Nothing
+falls back to the CPU: without a card the run fails unless --device cpu.
 
 Run (one card):  python3 scripts/torch_scale_human.py --tiered
      (smaller):  SCALE_HUMAN_ALLOW_SMALL=1 python3 scripts/torch_scale_human.py \\
                      --bp 40000000 --batch 8192 --k2-batch 8192 --n-truth 1024 --tiered
+     (A/B):      python3 scripts/torch_scale_human.py --keep --out DIR ...; then
+                 python3 scripts/torch_scale_human.py --index DIR --tiered [--fuse]
+                 [--package _ab/parent]
      (CPU):      SCALE_HUMAN_ALLOW_SMALL=1 python3 scripts/torch_scale_human.py \\
                      --bp 2000000 --device cpu --batch 256 --k2-batch 256 --n-truth 128
 """
@@ -106,6 +121,11 @@ def parse_args(argv=None):
     ap.add_argument("--k2-lf", type=float, default=6.0)
     ap.add_argument("--tiered", action="store_true",
                     help="also measure tiered k2 on the error-free window reads")
+    ap.add_argument("--fuse", action="store_true",
+                    help="fused one-dispatch program for all shards (Engine "
+                         "fuse_shards=True: one CUDA graph replay a block)")
+    ap.add_argument("--package", default=None,
+                    help="import bwtpu_torch from this directory (an earlier tree)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap.parse_args(argv)
 
@@ -229,6 +249,34 @@ def counting_multistep(counts: dict, keep: list):
         orig.launches += counted.launches
 
 
+@contextlib.contextmanager
+def timing_calls(acc: dict, what: str, targets):
+    """Add to acc[what] the seconds spent in the functions or methods
+    `targets` ((owner, name) pairs) while the block runs, whatever tree's
+    engine calls them."""
+    saved = [(owner, name, owner.__dict__.get(name)) for owner, name in targets]
+
+    def timed(f):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **kw)
+            finally:
+                acc[what] += time.perf_counter() - t0
+        return call
+
+    for owner, name, _ in saved:
+        setattr(owner, name, timed(getattr(owner, name)))
+    try:
+        yield
+    finally:
+        for owner, name, f in saved:
+            if f is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, f)
+
+
 def unsound_hits(codes: np.ndarray, reads, flat, k: int) -> tuple[int, int]:
     """(sound, unsound) hits of a FlatHits against the genome codes: a hit
     is sound when the read, on its strand, lies within the genome at the
@@ -261,7 +309,7 @@ def card_half(args, shards, manifest, load_s: float) -> None:
     """scale_human_chip.py on the port: every shard on one device."""
     import torch
 
-    from bwtpu_torch import dna
+    from bwtpu_torch import dna, readblock
     from bwtpu_torch.engine import Engine
     from bwtpu_torch.kernels import _build
     from bwtpu_torch.kernels.bounds import bound, cuda_ms, multistep_work
@@ -270,6 +318,7 @@ def card_half(args, shards, manifest, load_s: float) -> None:
     from bwtpu_torch.simulate import random_genome, simulate_reads
 
     cuda = args.device == "cuda"
+    fused_card = args.fuse and cuda  # blocks are graph replays: no wrapper call counts them
     t_all = time.time()
     out = {"config": f"human-scale on one card (S={len(shards)})", "platform": args.device,
            "device": torch.cuda.get_device_name(0) if cuda else "cpu",
@@ -292,7 +341,8 @@ def card_half(args, shards, manifest, load_s: float) -> None:
         # heal in every batch
         sh = [dataclasses.replace(s, config=cfg0.replace(loc_factor=lf, hit_factor=hf))
               for s in shards]
-        return Engine(sh, device=args.device)
+        # an earlier tree's Engine (--package) has no fuse_shards
+        return Engine(sh, device=args.device, **({"fuse_shards": True} if args.fuse else {}))
 
     t0 = time.time()
     eng = engine_with(args.exact_lf)
@@ -329,13 +379,31 @@ def card_half(args, shards, manifest, load_s: float) -> None:
             eng.autotune_caps(encs[0], 0, pad_to=B)
         eng.finish_block(eng.dispatch_block(encs[0], k, pad_to=B, tiered=tiered))
         h0 = eng.stats.heals
-        best = 0.0
+        best, walls = 0.0, collections.Counter()
         for _ in range(2):
             t0 = time.time()
-            hs = [eng.dispatch_block(e, k, pad_to=B, tiered=tiered) for e in encs]
+            hs = []
+            for e in encs:
+                t1 = time.perf_counter()
+                with timing_calls(walls, "pack", [(readblock, "pack_block")]), \
+                        timing_calls(walls, "upload", [(Engine, "_put")]):
+                    hs.append(eng.dispatch_block(e, k, pad_to=B, tiered=tiered))
+                walls["dispatch"] += time.perf_counter() - t1
             for h in hs:
-                eng.finish_block(h)
+                t1 = time.perf_counter()
+                with timing_calls(walls, "fetch", [(torch.Tensor, "cpu"),
+                                                   (torch.Tensor, "tolist")]):
+                    eng.finish_block(h)
+                walls["finish"] += time.perf_counter() - t1
             best = max(best, 2 * B / (time.time() - t0))
+        # ms per block; issue = the rest of dispatch_block (the pipelines'
+        # host issue, or the graph's input copy and replay), assembly = the
+        # rest of finish_block
+        ms = {n: v / (2 * len(encs)) * 1e3 for n, v in walls.items()}
+        per_block["k2_tiered" if tiered else f"k{k}"] = {
+            **{f"{n}_ms": ms[n] for n in ("dispatch", "pack", "upload", "finish", "fetch")},
+            "issue_ms": ms["dispatch"] - ms["pack"] - ms["upload"],
+            "assembly_ms": ms["finish"] - ms["fetch"]}
         out[f"k{k}_lf_tuned"] = eng._lf(k)
         out[f"k{k}_heals_timed"] = eng.stats.heals - h0
         if cuda:
@@ -343,6 +411,12 @@ def card_half(args, shards, manifest, load_s: float) -> None:
                 lambda: [eng.finish_block(h) for h in
                          [eng.dispatch_block(e, k, pad_to=B, tiered=tiered) for e in encs]])
         return best
+
+    def graph_captures() -> list:
+        """Each CUDA graph of the engine (--fuse): its key's mode, k, heal
+        level, rows and caps, and its warm-up and capture seconds."""
+        return [dict(mode=key[0], k=key[1], level=key[4], rows=key[7], caps=key[5], **v)
+                for key, v in getattr(eng, "captures", {}).items()]
 
     def profiled_pass(run) -> dict:
         """One more pass under torch.profiler (CUDA activity only), the
@@ -375,6 +449,7 @@ def card_half(args, shards, manifest, load_s: float) -> None:
     counts = {"calls": 0, "wide_calls": 0}
     wide_call: list = []
     busy: dict = {}
+    per_block: dict = {}
     _build.reset_launches()
     t0 = time.time()
     with counting_multistep(counts, wide_call):
@@ -411,6 +486,8 @@ def card_half(args, shards, manifest, load_s: float) -> None:
 
     # the k2 rate (and truth) on the k2-cap engine; the exact engine is
     # freed first: two resident indexes must never coexist on the card
+    captures = graph_captures()
+    replays = sum(getattr(eng, "graph_replays", {}).values())
     del eng
     gc.collect()
     if cuda:
@@ -451,7 +528,7 @@ def card_half(args, shards, manifest, load_s: float) -> None:
     out["heals"] = eng.stats.heals
     out["batch"] = args.batch
     out["k2_batch"] = args.k2_batch
-    out["fused_dispatch"] = False
+    out["fused_dispatch"] = args.fuse
     out["total_s"] = round(time.time() - t_all, 1)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True,
@@ -460,8 +537,13 @@ def card_half(args, shards, manifest, load_s: float) -> None:
         "card": smi, "max_memory_allocated_gb":
             round(torch.cuda.max_memory_allocated() / 1e9, 2) if cuda else None,
         "kmer_d": d_kept, "wide_steps": wide_steps,
-        "multistep_calls": counts["calls"], "wide_multistep_calls": counts["wide_calls"],
-        "multistep_wide_call": multistep, "profiled_pass": busy,
+        "multistep_calls": None if fused_card else counts["calls"],
+        "wide_multistep_calls": None if fused_card else counts["wide_calls"],
+        "graph_replays": replays + sum(getattr(eng, "graph_replays", {}).values()),
+        "max_memory_reserved_gb":
+            round(torch.cuda.max_memory_reserved() / 1e9, 2) if cuda else None,
+        "multistep_wide_call": multistep, "profiled_pass": busy, "per_block_ms": per_block,
+        "graph_captures": captures + graph_captures(),
         "launches": {n: c + launches[n] for n, c in _build.launch_counts().items()}}),
         flush=True)
     print(json.dumps(out), flush=True)
@@ -475,6 +557,8 @@ def card_half(args, shards, manifest, load_s: float) -> None:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.package:
+        sys.path.insert(0, os.path.abspath(args.package))
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():

@@ -781,3 +781,151 @@ def test_dist_engine_on_the_card_equals_engine(cuda, tmp_path, backend, world, S
         assert all(min(r[f"launches{k}"]) > 0 for r in ranks), [r[f"launches{k}"] for r in ranks]
     assert {r["transport"] for r in ranks} == {
         "nccl" if backend == "nccl" else "gloo via host memory"}
+
+
+@pytest.fixture(scope="module")
+def three_shards():
+    """3 shards of GENOME (sa_rate 8, overlap 128) and 4,096 reads of 100 bp
+    with up to 2 substitutions and N bases: four blocks of 1,024."""
+    from bwtpu_torch.index import build_sharded_index
+    from bwtpu_torch.readblock import ReadBlock
+
+    shards, _ = build_sharded_index(GENOME, 3, config=EngineConfig(sa_rate=8, read_len=L),
+                                    overlap=128)
+    reads, _ = simulate_reads(GENOME, 4096, read_len=L, max_mismatches=2, n_frac=0.01, seed=34)
+    return shards, [ReadBlock.from_reads(reads[i:i + 1024]) for i in range(0, 4096, 1024)]
+
+
+def _flat_key(flat):
+    return tuple(getattr(flat, n).tolist() for n in ("read_idx", "pos", "strand_rev", "nm")) + (
+        None if flat.truncated is None else flat.truncated.tolist(),)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,tiered", [(0, False), (2, False), (2, True)])
+def test_fused_dispatch_on_the_card_equals_the_loop(cuda, three_shards, k, tiered):
+    """Engine(fuse_shards=True) on the card, one CUDA graph replay a
+    dispatch (heals included), against the loop form on the same card:
+    four blocks in flight, equal FlatHits and BatchStats."""
+    from bwtpu_torch.engine import Engine
+
+    shards, blks = three_shards
+    out = {}
+    for fuse in (False, True):
+        eng = Engine(shards, device="cuda", fuse_shards=fuse)
+        handles = [eng.dispatch_block(b, k, pad_to=1024, tiered=tiered) for b in blks]
+        out[fuse] = ([_flat_key(eng.finish_block(h)) for h in handles],
+                     dict(vars(eng.stats), device_s=0, host_s=0))
+    assert out[True] == out[False]
+    assert eng.graph_replays.total() == len(blks) + eng.stats.heals and eng._graphs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse", [False, True], ids=["loop", "fused"])
+@pytest.mark.parametrize("k,tiered", [(0, False), (2, False), (2, True)])
+def test_block_dispatch_does_not_sync(cuda, three_shards, fuse, k, tiered):
+    """Once the reads are on the card, a dispatch queues every shard's
+    packed pipeline (hits_output or the tiered pipeline with its
+    escalation compaction; fused: the copy into the graph's inputs, the
+    replay and the copy out) without one host sync: it runs under sync
+    debug mode "error", with the same FlatHits."""
+    from bwtpu_torch.engine import Engine
+
+    shards, blks = three_shards
+    eng = Engine(shards, device="cuda", fuse_shards=fuse)
+    want = eng.finish_block(eng.dispatch_block(blks[0], k, pad_to=1024, tiered=tiered))
+    rw, ab, Bp = eng._upload_block(blks[0], 1024)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = eng._dispatch_packed(blks[0], rw, ab, Bp, k, 0, tiered)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert handle[6] == ("tiered" if tiered else "hits")
+    assert _flat_key(eng.finish_block(handle)) == _flat_key(want)
+
+
+@pytest.mark.gpu
+def test_fused_dispatch_is_one_graph_replay(cuda, three_shards):
+    """A fused dispatch_block of a captured key is one replay: a
+    torch.profiler window around it sees one cudaGraphLaunch and no kernel
+    launch, no new graph is captured, no launch counter moves (a replay
+    calls no wrapper), and the trace's device kernels are, by name, the
+    launches the capture recorded (search_multistep among them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bwtpu_torch.engine import Engine
+    from bwtpu_torch.kernels import _build
+
+    shards, blks = three_shards
+    eng = Engine(shards, device="cuda", fuse_shards=True)
+    eng.finish_block(eng.dispatch_block(blks[0], 0, pad_to=1024))  # warm-up and capture
+    assert eng.stats.heals == 0 and len(eng._graphs) == 1
+    (graph,) = eng._graphs.values()
+    assert graph.launches.get("search_multistep", 0) >= 3, graph.launches
+    for _ in range(3):  # a window with no event delivered is retried
+        before, replays = _build.launch_counts(), eng.graph_replays.total()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            handle = eng.dispatch_block(blks[1], 0, pad_to=1024)
+            torch.cuda.synchronize()
+        after = _build.launch_counts()
+        eng.finish_block(handle)
+        names = [e.name for e in prof.events()]
+        if any("GraphLaunch" in n for n in names):
+            break
+    assert sum("GraphLaunch" in n for n in names) == 1, names
+    assert not any("LaunchKernel" in n for n in names), names
+    assert eng.graph_replays.total() == replays + 1 and len(eng._graphs) == 1
+    assert after == before
+    ran = _build.launches_in_trace(e.name for e in prof.events()
+                                   if e.device_type == DeviceType.CUDA)
+    assert ran == {n: graph.launches.get(n, 0) for n in ran}, (ran, graph.launches)
+
+
+@pytest.mark.gpu
+def test_fused_dispatch_with_finish_on_a_worker_thread(cuda):
+    """As the CLI runs it: the main thread dispatches with up to four
+    blocks in flight while one worker thread finishes them, and heals,
+    which dispatch and capture new graphs, on the worker, at a shortened
+    switch interval. A repeat-rich genome at binding caps heals every
+    block; each block's hits equal the loop form's, and every dispatch
+    replayed once."""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bwtpu_torch.engine import Engine
+    from bwtpu_torch.index import build_sharded_index
+    from bwtpu_torch.readblock import ReadBlock
+
+    rep = GENOME[:120] * 5 + GENOME[:3000]
+    cfg = EngineConfig(sa_rate=4, max_hits=2, max_cand=2, read_len=50, loc_factor=0.5,
+                       min_trips=1, max_heals=6)
+    shards, _ = build_sharded_index(rep, 3, config=cfg, overlap=64)
+    reads, _ = simulate_reads(rep, 64, read_len=50, max_mismatches=2, seed=23)
+    blks = [ReadBlock.from_reads(reads), ReadBlock.from_reads(reads[::-1])]
+    loop = Engine(shards, device="cuda")
+    want = {k: [_flat_key(loop.finish_block(loop.dispatch_block(b, k, pad_to=64)))
+                for b in blks] for k in (0, 2)}
+    assert loop.stats.heals >= 2 * len(blks), loop.stats
+    eng = Engine(shards, device="cuda", fuse_shards=True)
+    jobs = [(i % len(blks), k) for i in range(12) for k in (0, 2)]
+    got, inflight = [], []
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            for i, k in jobs:
+                handle = eng.dispatch_block(blks[i], k, pad_to=64)
+                inflight.append(ex.submit(lambda h: _flat_key(eng.finish_block(h)), handle))
+                if len(inflight) > 3:
+                    got.append(inflight.pop(0).result(timeout=300))
+            got += [f.result(timeout=300) for f in inflight]
+    finally:
+        sys.setswitchinterval(switch)
+    for (i, k), g in zip(jobs, got, strict=True):
+        assert g == want[k][i], (i, k)
+    assert eng.graph_replays.total() == len(jobs) + eng.stats.heals, (eng.graph_replays,
+                                                                      eng.stats)
+    assert len(eng._graphs) > 2  # heal levels captured on the worker

@@ -8,7 +8,8 @@ every array equal). The card half with --device cpu, small batches and
 (read from its source, chip_smoke.scale_human_keys, which the card's
 smoke run checks with too), every truth recovered, every hit sound, no
 overflowed read; then again with --kmer-d 4, the ladder's shallowest
-depth, whose start intervals need wide steps on 200 kbp shards."""
+depth, whose start intervals need wide steps on 200 kbp shards, and with
+--fuse (the fused multi-shard dispatch), equal to the loop's."""
 
 import json
 import os
@@ -110,6 +111,23 @@ def test_card_half_at_kmer_d_4_runs_wide_steps(runs):
     assert card["wide_multistep_calls"] == card["multistep_calls"] > 0
     assert out["truth_recovered"] == out["truth_reads"] == 128
     assert out["unsound_hits"] == 0 and out["overflow_reads"] == 0
+
+
+def test_card_half_with_fuse_equals_the_loop(runs):
+    """--fuse (Engine fuse_shards=True) on the same artifact: fused_dispatch
+    reads true, and truth and the hits checked equal the loop's; both
+    lines carry the per-block dispatch / fetch / assembly split."""
+    card, out = _port("--index", runs["got"], *SMALL, "--tiered", "--fuse")
+    loop_card, loop = runs["port"][1:]
+    assert out["fused_dispatch"] is True and loop["fused_dispatch"] is False
+    for key in ("truth_recovered", "recovered_beyond_int32", "sound_hits", "unsound_hits",
+                "overflow_reads", "k2_tiered_escalated_frac"):
+        assert out[key] == loop[key], key
+    for c in (card, loop_card):
+        assert sorted(c["per_block_ms"]) == ["k0", "k2", "k2_tiered"]
+        assert all(v["fetch_ms"] > 0 and v["assembly_ms"] > 0
+                   for v in c["per_block_ms"].values()), c["per_block_ms"]
+    assert card["graph_captures"] == []  # the CPU runs the fused program eagerly
 
 
 def test_without_a_card_the_run_fails_unless_device_cpu(runs):
