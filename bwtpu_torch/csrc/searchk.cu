@@ -63,6 +63,7 @@
 #include <type_traits>
 
 #include "occ.cuh"
+#include "scan.cuh"
 
 #ifndef SEARCHK_G3
 #define SEARCHK_G3 2
@@ -80,9 +81,6 @@ constexpr int kSmemBins = 8192;   // histogram bins kept in shared memory
 constexpr int kChunk = 4;         // trips whose codes are staged at once
 constexpr int kExitItems = 8;     // lanes per thread of the exit kernel
 constexpr int kExitTile = 256 * kExitItems;  // lanes per exit CTA
-constexpr unsigned kAgg = 1u << 30;     // look-back word: aggregate only
-constexpr unsigned kPrefix = 2u << 30;  // look-back word: inclusive prefix
-constexpr unsigned kValue = kAgg - 1u;
 
 // `nbits` (<= 26) bits from base slot j of a 2-bit packed row
 __device__ __forceinline__ uint32_t extract_bits(const int* row, int j, int nbits) {
@@ -301,22 +299,16 @@ __global__ void __launch_bounds__(kCta) multistep_kernel(
   }
 }
 
-__device__ __forceinline__ unsigned load_volatile(const unsigned* p) {
-  return *reinterpret_cast<const volatile unsigned*>(p);
-}
-
 // The exit trip from the histogram (every CTA's first warp finds it: the
 // pool at trip t is B minus the lanes with leave <= t), then each lane's
 // unfinished flag ORs in leave > t* (its rem becomes 0), and the unfinished
 // lanes are compacted in lane order. A CTA's tile is its ticket (taken by
 // its second warp while the first scans the histogram): kExitTile lanes,
 // kExitItems consecutive lanes a thread, loaded together; one block scan
-// of the threads' counts; the tile's count is published at once (kAgg) and
-// its inclusive prefix (kPrefix) once its predecessors' are known, read by
-// one warp 32 tiles at a time. Position < cap: sel[position] = lane; else
-// the lane is forced empty (sp = ep = 0) and over_lane = 1. The last tile
-// writes the total (n_unf) and count = min(total, cap); tile 0 writes
-// trips.
+// of the threads' counts and the decoupled look-back of scan.cuh. Position
+// < cap: sel[position] = lane; else the lane is forced empty (sp = ep = 0)
+// and over_lane = 1. The last tile writes the total (n_unf) and count =
+// min(total, cap); tile 0 writes trips.
 __global__ void __launch_bounds__(256) exit_kernel(
     const int* __restrict__ hist, int T, int min_trips, int cap, int B,
     const int* __restrict__ leave, bool* __restrict__ unfinished, int* __restrict__ rem,
@@ -372,45 +364,13 @@ __global__ void __launch_bounds__(256) exit_kernel(
 #pragma unroll
   for (int r = 0; r < kExitItems; ++r) own += f[r];
 
-  // the threads' exclusive prefix within the tile, and the tile's count
-  int incl = own;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int n = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-    if (l >= o) incl += n;
-  }
-  if (l == 31) s_warp[warp] = incl;
-  __syncthreads();
-  int below = 0, run = 0;
-#pragma unroll
-  for (int w = 0; w < 8; ++w) {
-    const int c = s_warp[w];
-    below += w < warp ? c : 0;
-    run += c;
-  }
-  const int mine = below + incl - own;
-
-  if (warp == 0) {  // decoupled look-back
-    int excl = 0;
-    if (l == 0) atomicExch(&flags[tile], (tile == 0 ? kPrefix : kAgg) | (unsigned)run);
-    for (int top = tile - 1; top >= 0; top -= 32) {
-      const int j = top - l;
-      unsigned v;
-      do {
-        v = j >= 0 ? load_volatile(flags + j) : kPrefix;
-      } while (__any_sync(0xFFFFFFFFu, (v >> 30) == 0u));
-      const unsigned pre = __ballot_sync(0xFFFFFFFFu, (v >> 30) == 2u);
-      const int stop = pre ? __ffs(pre) - 1 : 32;
-      int add = l <= stop ? (int)(v & kValue) : 0;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) add += __shfl_xor_sync(0xFFFFFFFFu, add, o);
-      excl += add;
-      if (pre) break;
-    }
-    if (l == 0) {
-      if (tile > 0) atomicExch(&flags[tile], kPrefix | (unsigned)(excl + run));
-      s_prefix = excl;
-    }
+  // the threads' exclusive prefix within the tile, the tile's count, and
+  // the tile's prefix
+  const int2 scan = block_exclusive_scan<8>(own, s_warp);
+  const int mine = scan.x, run = scan.y;
+  if (warp == 0) {
+    const int excl = tile_lookback(flags, tile, run);
+    if (l == 0) s_prefix = excl;
   }
   __syncthreads();
   int p = s_prefix + mine;
@@ -471,7 +431,7 @@ extern "C" int bwtpu_search_multistep(
     void* unfinished, void* over_lane, void* ws, int ws_words, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int nb = B > 0 ? (B + kExitTile - 1) / kExitTile : 1;
-  if (ws_words != T + 5 + nb + cap || B >= (int)kAgg || cap < 0)
+  if (ws_words != T + 5 + nb + cap || B >= (int)kScanAgg || cap < 0)
     return (int)cudaErrorInvalidValue;
   int* w = (int*)ws;
   cudaError_t err = cudaMemsetAsync(ws, 0, (size_t)ws_words * sizeof(int), s);

@@ -65,7 +65,7 @@ from bwtpu_torch.kernels import _build
 from bwtpu_torch.kernels.common import i32, popcount32
 from bwtpu_torch.kernels.compact import compact, compact_counts, scatter_back
 from bwtpu_torch.kernels.locate import locate_walk
-from bwtpu_torch.kernels.prep import revcomp_packed
+from bwtpu_torch.kernels.prep import revcomp_both
 from bwtpu_torch.kernels.search import interval_rows
 from bwtpu_torch.kernels.search2 import backward_search_ra, right_align
 from bwtpu_torch.kernels.searchk import search_early_stop_packed
@@ -340,12 +340,10 @@ def device_prep_uniform(read_words, amb_bits, L: int, k: int):
 
 
 def device_prep_packed(read_words, amb_bits, L: int):
-    """Both-strand packed rows: (rw2, ab2, lens2, lm2), forward rows first."""
+    """Both-strand packed rows: (rw2, ab2, lens2, lm2), forward rows first
+    (revcomp_both: one kernel on the card)."""
     B, W = read_words.shape
-    rc_w, rc_a = revcomp_packed(read_words, amb_bits, L)
-    rw2 = torch.cat([read_words, rc_w])
-    ab2 = torch.cat([amb_bits, rc_a])
-    lens2 = torch.full((2 * B,), L, dtype=torch.int32, device=read_words.device)
+    rw2, ab2, lens2 = revcomp_both(read_words, amb_bits, L)
     return rw2, ab2, lens2, _len_mask(L, read_words.device).unsqueeze(0).expand(2 * B, W)
 
 
@@ -605,9 +603,8 @@ def tiered_pipeline_packed(shard: Shard, read_words, amb_bits, *, L, k, d, d_see
     n_amb = popcount32(ab2[:B] & lm2[:B]).sum(1, dtype=torch.int32)
     escalate = ~read_has0 & (n_amb < torch.clamp(lens2[:B], max=L))
     esc_cap = min(compact_cap(B, esc_factor, cap_scale), B)
-    esc_sel, esc_cnt, esc_over = compact(escalate, esc_cap)
-    # reads escalated past capacity lose their inexact tier
-    esc_dropped = escalate & (torch.cumsum(escalate.to(torch.int32), 0) > esc_cap)
+    # reads escalated past capacity lose their inexact tier (esc_dropped)
+    esc_sel, esc_cnt, esc_over, esc_dropped = compact(escalate, esc_cap)
 
     # tier 2: seed expansion on the escalated subset
     live_e = torch.arange(esc_cap, dtype=torch.int32, device=dev) < esc_cnt
@@ -648,8 +645,7 @@ def hits_output(out, *, k: int, Ct: int, hit_cap: int):
     cand_c, nm_c, sel, count, overflow, comp_over = out
     live = torch.arange(sel.shape[0], dtype=torch.int32, device=sel.device) < count
     keep = (nm_c <= k) & live
-    sel2, cnt2, hover = compact(keep, hit_cap)
-    drop = keep & (torch.cumsum(keep.to(torch.int32), 0) > hit_cap)
+    sel2, cnt2, hover, drop = compact(keep, hit_cap)
     overflow = overflow.index_add(0, sel // Ct, drop.to(torch.int32))
     payload = torch.stack([cand_c, sel * 4 + nm_c], dim=1).index_select(0, sel2)
     ov_rows = overflow > 0

@@ -31,7 +31,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-SOURCES = ("locate", "verify", "search1", "search2", "searchk", "gather", "sw")  # csrc/*.cu
+SOURCES = ("locate", "verify", "search1", "search2", "searchk", "gather", "sw",
+           "compact", "prep")  # csrc/*.cu
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -229,7 +230,8 @@ DEVICE_FUNCS = {
     "search_chain1": ("search_chain1_kernel",),
     "search_chain2": ("chain2_packed_kernel", "chain2_planes_kernel"),
     "search_multistep": ("exit_kernel",), "verify_locv": ("verify_locv_kernel",),
-    "row_gather_sum": ("row_gather_sum_kernel",),
+    "row_gather_sum": ("row_gather_sum_kernel",), "compact_slots": ("compact_slots_kernel",),
+    "compact_mask": ("compact_mask_kernel",), "revcomp_both": ("revcomp_both_kernel",),
 }
 _FUNC = re.compile(r"(?<!\w)(" + "|".join(f for fs in DEVICE_FUNCS.values() for f in fs)
                    + r")(?!\w)")
@@ -251,8 +253,10 @@ def launches_in_trace(names) -> dict:
 def _wrappers() -> dict:
     """{kernel name: wrapper} of every kernel (imported at call time: the
     wrapper modules import this one)."""
+    from bwtpu_torch.kernels.compact import compact, compact_counts
     from bwtpu_torch.kernels.gather import row_gather_sum
     from bwtpu_torch.kernels.locate import locate_walk
+    from bwtpu_torch.kernels.prep import revcomp_both
     from bwtpu_torch.kernels.search2 import search_chain1, search_chain2
     from bwtpu_torch.kernels.searchk import search_multistep
     from bwtpu_torch.kernels.verify2 import verify_locv, verify_nm
@@ -261,7 +265,8 @@ def _wrappers() -> dict:
     return {"sw_band": sw_score_batch, "locate_walk": locate_walk, "verify_nm": verify_nm,
             "search_chain1": search_chain1, "search_chain2": search_chain2,
             "search_multistep": search_multistep, "verify_locv": verify_locv,
-            "row_gather_sum": row_gather_sum}
+            "row_gather_sum": row_gather_sum, "compact_slots": compact_counts,
+            "compact_mask": compact, "revcomp_both": revcomp_both}
 
 
 def reset_launches() -> None:

@@ -1,8 +1,9 @@
 """The least time the card could take for a kernel call: the bytes it
 must move over the memory rate or the operations it does over the ALU
-rate, whichever is larger, and the work of a search_multistep call
-counted from its own inputs. Used by chip_smoke.py and the scripts that
-time kernels; nothing on the alignment path imports it."""
+rate, whichever is larger, and the work of a search_multistep,
+compact_counts, compact or revcomp_both call counted from its own
+inputs. Used by chip_smoke.py and the scripts that time kernels; nothing
+on the alignment path imports it."""
 
 from __future__ import annotations
 
@@ -122,3 +123,34 @@ def multistep_work(args):
                    + (n_unique(torch.cat(secs)) if secs else 0)) + B * 25 + (cap + T + 5) * 4
     ops = 2 * counted + 60 * lane_trips + 40 * B
     return nbytes, ops, f"{B} lanes x L {L}, d {d}, T {T}, {lane_trips} lane-trips"
+
+
+def compact_slots_work(args):
+    """(bytes, ops, what) of a compact_counts call (counts, H, cap): each
+    lane's int32 count read and its dropped flag written, sel (cap int32)
+    and the two scalars written; 10 operations a lane (clamp, scan, flag)
+    and 2 a slot written (this call's clamped total up to cap)."""
+    counts, H, cap = args
+    n = counts.shape[0]
+    slots = min(int(counts.clamp(0, H).sum()), cap)
+    return (5 * n + 4 * cap + 8, 10 * n + 2 * slots,
+            f"{n} lanes, H {H}, cap {cap}, {slots} slots written")
+
+
+def compact_mask_work(args):
+    """(bytes, ops, what) of a compact call (valid, cap): each lane's mask
+    byte read and its over flag written, sel (cap int32) and the two
+    scalars written; 10 operations a lane."""
+    valid, cap = args
+    n = valid.shape[0]
+    return 2 * n + 4 * cap + 8, 10 * n, f"{n} lanes, {int(valid.sum())} set, cap {cap}"
+
+
+def revcomp_both_work(args):
+    """(bytes, ops, what) of a revcomp_both call (words, amb, L): both
+    int32[B, W] planes read once, both int32[2B, W] planes and lens2
+    written; 20 operations a reverse-complement word (NOT, bit reverse,
+    field swap, funnel shift) of each plane."""
+    words, _, L = args
+    B, W = words.shape
+    return 24 * B * W + 8 * B, 40 * B * W, f"{B} reads x L {L} (W {W})"

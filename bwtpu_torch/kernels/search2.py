@@ -288,13 +288,12 @@ def backward_search_ra(lattice, C, dollar_row: int, n: int, kmer_table, ra_codes
                              cap=min(B, max(256, B // 8) * cap_scale))
 
 
-def _force_over(sp, ep, strag, cap: int):
-    """Force the flagged lanes past the fixup capacity empty; returns
-    (sp, ep, over_lane int32)."""
-    over_lane = strag & (torch.cumsum(strag.to(torch.int32), 0) > cap)
-    sp = torch.where(over_lane, 0, sp)
-    ep = torch.where(over_lane, 0, ep)
-    return sp, ep, over_lane.to(torch.int32)
+def _force_over(sp, ep, over):
+    """Force the flagged lanes past the fixup capacity (`compact`'s over
+    flag) empty; returns (sp, ep, over_lane int32)."""
+    sp = torch.where(over, 0, sp)
+    ep = torch.where(over, 0, ep)
+    return sp, ep, over.to(torch.int32)
 
 
 def _fixup_stragglers(lattice, C, dollar_row: int, ra_codes, ra_amb, lens,
@@ -303,10 +302,10 @@ def _fixup_stragglers(lattice, C, dollar_row: int, ra_codes, ra_amb, lens,
     two-record chain, compacted to `cap` lanes; sp and ep are updated in
     place. Returns (sp, ep, over_lane int32[B]): lanes past the capacity
     are forced empty and flagged, never silently wrong."""
-    sel, count, _ = compact(strag, cap)
+    sel, count, _, over = compact(strag, cap)
     search_chain2(lattice, C, dollar_row, Planes(ra_codes, ra_amb, lens), sp0, ep0, sel,
                   count, sp, ep, d)
-    return _force_over(sp, ep, strag, cap)
+    return _force_over(sp, ep, over)
 
 
 def right_align(codes: np.ndarray, amb: np.ndarray, lens: np.ndarray):

@@ -33,7 +33,7 @@ import torch
 
 from bwtpu_torch.index import OCCK_BLOCK, OCCK_WIDTH
 from bwtpu_torch.kernels import _build, common, prep, search2
-from bwtpu_torch.kernels.compact import compact
+from bwtpu_torch.kernels.compact import compact_plain
 
 
 def occk_pair_from_record(rec, t, sp, ep, inv, A: int, R: int):
@@ -157,8 +157,8 @@ def search_multistep_plain(lattice, latk, latk_inv, C, dollar_row: int, kmer_tab
                            stop_width: int, min_trips: int = 0, cap_scale: int = 1,
                            wide_steps: int = 0):
     """Plain version of search_multistep, in the kernel's order:
-    `lanes_plain`, then `exit_trip`, the unfinished rule, `compact` and
-    `_force_over`. Same outputs as the kernel."""
+    `lanes_plain`, then `exit_trip`, the unfinished rule, `compact_plain`
+    and `_force_over`. Same outputs as the kernel."""
     T, _, cap = _shape(L, d, step, wide_steps, words.shape[0], cap_scale)
     sp0, ep0, sp, ep, rem, own, leave = lanes_plain(
         lattice, latk, latk_inv, C, dollar_row, kmer_table, words, amb_bits, off, L, d, step,
@@ -166,8 +166,8 @@ def search_multistep_plain(lattice, latk, latk_inv, C, dollar_row: int, kmer_tab
     trips = exit_trip(leave, T, min_trips, cap)
     unfinished = own | (leave > trips)
     rem = torch.where(unfinished, 0, rem)
-    sel, count, _ = compact(unfinished, cap)
-    sp, ep, over_lane = search2._force_over(sp, ep, unfinished, cap)
+    sel, count, _, over = compact_plain(unfinished, cap)
+    sp, ep, over_lane = search2._force_over(sp, ep, over)
     return (sp0, ep0, sp, ep, rem, unfinished, trips, sel, count, over_lane,
             unfinished.sum(dtype=torch.int32))
 

@@ -6,15 +6,17 @@
 Phases, in order; any failure raises and the exit code is not 0:
   1. the card: nvidia-smi name + power limit, torch's device name;
   2. build and load the port's native host library (g++, from
-     bwtpu_torch/csrc/host; required), then the eight CUDA kernel sources
+     bwtpu_torch/csrc/host; required), then the nine CUDA kernel sources
      (nvcc, sm_90a) from bwtpu_torch/csrc, one nvcc per source, all
      started together; registers, stack frame and spills of each source;
   3. `build-index --sa-rate 1` of the E. coli-size genome (phase 7's
      index); each kernel against its plain-torch version on the card
      (exact equality), with CUDA-event times of both (a run of 50
      launches between one event pair, divided by 50) and its bound:
-     search_multistep, search_chain2, locate_walk and verify_nm on the very
-     arguments one block of phase 5's reads hands them (k = 0 and k = 2;
+     search_multistep, search_chain2, locate_walk, verify_nm, revcomp_both,
+     compact_slots and compact_mask on the very arguments one block of
+     phase 5's reads hands them (k = 0 and k = 2; compact_mask's library
+     call torch.nonzero_static timed beside it;
      search_multistep also as the whole search_early_stop_packed against
      its plain version, its floors (the empty call, the lane with the
      largest exit trip alone) and the operations one whole call puts on
@@ -22,7 +24,8 @@ Phases, in order; any failure raises and the exit code is not 0:
      cap_scale, T = 0), at the bench's size (phase 5's reads tiled 4x:
      1,048,576 lanes, on the sa_rate 1 index) and under sync debug mode
      "error", with a report of the first syncing op of a whole
-     Engine.dispatch_block; search_chain2
+     Engine.dispatch_block; one dispatch of the block at each k under
+     torch.profiler with no cummax or scatter_reduce op; search_chain2
      also on one lane alone, its latency floor), search_chain1 on the
      very arguments one batch of phase 6's reads hands it through
      Engine.dispatch_batch (k = 0 reads and k = 2 seeds, each timed 3x;
@@ -39,8 +42,8 @@ Phases, in order; any failure raises and the exit code is not 0:
      CLI `align -k 0` and `-k 2` at batch 16,384; checks truth recovery,
      a brute-force Hamming scan of 256 sampled reads, SAM determinism,
      zero truncated reads and that search_multistep, locate_walk,
-     verify_nm and (in the straggler finisher) search_chain2 ran on that
-     path;
+     verify_nm, (in the straggler finisher) search_chain2, revcomp_both,
+     compact_slots and compact_mask ran on that path;
   6. the Read-list path on the same index: 131,072 reads of 50-100 bp
      as FASTA through the port CLI at k = 0 and k = 2, batch 16,384
      (Engine.dispatch_batch -> backward_search_ra); the same checks, and
@@ -51,8 +54,9 @@ Phases, in order; any failure raises and the exit code is not 0:
      --autotune-caps`. The k = 0 and k = 2 SAM byte-equal to phase 5's;
      tiered holds the stratum contract against brute force on 256
      sampled reads; truth; 0 truncated reads; the tuned loc_factor <= its
-     ceiling; search_multistep, verify_locv and search_chain2 launched,
-     locate_walk and verify_nm not;
+     ceiling; search_multistep, verify_locv, search_chain2, revcomp_both,
+     compact_slots and compact_mask launched, locate_walk and verify_nm
+     not;
   8. the A/B entry point of the row gather (scripts/torch_gather_ab.py)
      at a locv row's width, at the text-row table's size (phase 3 timed
      the locv table's): an L2-resident gather rate, against which
@@ -72,13 +76,14 @@ Phases, in order; any failure raises and the exit code is not 0:
      k = 0 and 2: pair truth, the paired Read-list loop byte-equal to the
      columnar path, brute force on 256 sampled mate-1 reads against a
      single-end pass, no truncated read, search_multistep, locate_walk,
-     verify_nm and search_chain2 launched at least once per shard and
-     block; then a single-shard `build-index --kmer-d 11` of the same
-     genome (its s-mer lattice larger than L2) and one block of 16,384
-     mate-1 reads through Engine.dispatch_block + finish_block at k = 0
-     and 2: every search_multistep call with wide_steps 1, the first of
-     each k held against its plain version, timed, bounded and floored as
-     in phase 3, and the block's truth;
+     verify_nm, search_chain2, revcomp_both, compact_slots and
+     compact_mask launched at least once per shard and block; then a
+     single-shard `build-index --kmer-d 11` of the same genome (its s-mer
+     lattice larger than L2) and one block of 16,384 mate-1 reads through
+     Engine.dispatch_block + finish_block at k = 0 and 2: every
+     search_multistep call with wide_steps 1, the first of each k held
+     against its plain version, timed, bounded and floored as in phase 3,
+     and the block's truth;
  10b. the fused multi-shard dispatch on phase 10's 2-shard index:
      Engine(fuse_shards=True), one CUDA graph replay a block, with four
      blocks of 16,384 mate-1 reads in flight at k = 0, k = 2 (hit_factor
@@ -89,7 +94,8 @@ Phases, in order; any failure raises and the exit code is not 0:
      mode's fused run once more under torch.profiler, its launches
      counted from the trace's kernel names and equal to what each
      replayed graph's capture recorded (a replay calls no wrapper, so
-     these measured counts are the path's launches); a window of one
+     these measured counts are the path's launches), revcomp_both,
+     compact_slots and compact_mask among them; a window of one
      replayed dispatch_block with one graph launch and no kernel launch;
      the dispatch and finish walls and each graph's warm-up and capture
      printed, not gated;
@@ -110,9 +116,10 @@ Phases, in order; any failure raises and the exit code is not 0:
      Each run's merged per-rank SAM bodies byte-equal to sam.emit_sam /
      pair_and_emit_sam over the single-process Engine.align_all on the
      same reads (which phases 5 and 10 hold against truth and brute
-     force); search_multistep, locate_walk, verify_nm and search_chain2
-     launched in every rank and run; reads/s, wall, heals and transport
-     per rank;
+     force); search_multistep, locate_walk, verify_nm, search_chain2,
+     revcomp_both and compact_slots launched in every rank and run (the
+     ring's packed pipelines return compacted candidates: no hit
+     compaction); reads/s, wall, heals and transport per rank;
  13. the bench: `python -m bwtpu_torch.cli bench` at its defaults (bench.py's
      configuration at full size) in a subprocess: rc 0, the JSON line with
      every key of bench.py's, platform cuda, every rate > 0, every overflow
@@ -136,16 +143,18 @@ Phases, in order; any failure raises and the exit code is not 0:
           wide_steps 2, the first of each k held against its plain version,
           timed, bounded and floored as in phase 10; the block's truth;
           brute force over the whole shard on as many sampled reads as fit
-          in 30 s (at least 16); search_multistep, locate_walk, verify_nm and
-          search_chain2 launched; the shard's bytes on the card;
+          in 30 s (at least 16); search_multistep, locate_walk, verify_nm,
+          search_chain2, revcomp_both, compact_slots and compact_mask
+          launched; the shard's bytes on the card;
      14b. scripts/torch_scale_human.py as a subprocess (started beside
           14a's brute force, which is not timed) at 40 Mbp (10
           shards of ~4 Mbp) with small batches and --tiered: rc 0, both JSON
           lines with every key of scripts/scale_human.py's and
           scale_human_chip.py's (read with ast), every truth recovered,
           every hit sound, no overflowed read, search_multistep launched in
-          both halves and search_chain2, locate_walk and verify_nm in the
-          card half; then its card half again on the kept artifact with
+          both halves and search_chain2, locate_walk, verify_nm,
+          revcomp_both, compact_slots and compact_mask in the card half;
+          then its card half again on the kept artifact with
           --fuse: the same checks, fused_dispatch true, graphs replayed,
           and the same hits sound as the loop's (its launches: only the
           eager warm-ups, the replays' are not counted).
@@ -493,33 +502,41 @@ def timing(owner, name: str, secs: dict, sync: bool = False):
 
 
 def main_path_kernels(idx, block_reads):
-    """search_multistep, search_chain2, locate_walk and verify_nm on the
-    arguments the main path itself hands them: one block of phase 5's
-    reads through Engine.dispatch_block + finish_block on the CLI-default
-    index, at k = 0 (the full-read search and its finisher) and k = 2
-    (three seed searches and their finishers, 65,536 locate and verify
-    lanes). Each call is checked against its plain version and timed
-    (RUNS timings, their median recorded and their range printed); its
-    bound is counted from these inputs. search_multistep's calls are
-    also held as the whole search_early_stop_packed against its plain
-    version; then its edge calls and the sync check."""
+    """search_multistep, search_chain2, locate_walk, verify_nm and the
+    prep and compaction kernels (revcomp_both, compact_slots, compact_mask)
+    on the arguments the main path itself hands them: one block of phase
+    5's reads through Engine.dispatch_block + finish_block on the
+    CLI-default index, at k = 0 (the full-read search and its finisher)
+    and k = 2 (three seed searches and their finishers, 65,536 locate and
+    verify lanes). Each call is checked against its plain version and
+    timed (RUNS timings, their median recorded and their range printed);
+    its bound is counted from these inputs; compact_mask's library call
+    is timed. search_multistep's calls are also held as the whole
+    search_early_stop_packed against its plain version; then its edge
+    calls and the sync check, and a trace of one dispatch at each k with
+    no plain compaction in it."""
     import torch
 
     from bwtpu_torch import engine
-    from bwtpu_torch.kernels import locate, search2, searchk
-    from bwtpu_torch.kernels.bounds import bound, cuda_ms, multistep_work
+    from bwtpu_torch.kernels import compact, locate, prep, search2, searchk
+    from bwtpu_torch.kernels.bounds import (bound, compact_mask_work, compact_slots_work,
+                                            cuda_ms, multistep_work, revcomp_both_work)
     from bwtpu_torch.kernels.verify2 import verify_nm, verify_nm_plain
     from bwtpu_torch.readblock import ReadBlock
 
     blk = ReadBlock.from_reads(block_reads)
-    names = ("search_multistep", "search_chain2", "locate_walk", "verify_nm")
-    calls = {k: {n: [] for n in names} for k in (0, 2)}
+    # (owner, name called) of each kernel's wrapper on the main path
+    owners = {"search_multistep": (searchk, "search_multistep"),
+              "search_chain2": (search2, "search_chain2"),
+              "locate_walk": (engine, "locate_walk"), "verify_nm": (engine, "verify_nm"),
+              "revcomp_both": (engine, "revcomp_both"),
+              "compact_slots": (engine, "compact_counts"), "compact_mask": (engine, "compact")}
+    calls = {k: {n: [] for n in owners} for k in (0, 2)}
     for k in (0, 2):
         eng = engine.Engine([idx], device="cuda")
-        with capturing(searchk, "search_multistep", calls[k]["search_multistep"]), \
-                capturing(search2, "search_chain2", calls[k]["search_chain2"]), \
-                capturing(engine, "locate_walk", calls[k]["locate_walk"]), \
-                capturing(engine, "verify_nm", calls[k]["verify_nm"]):
+        with contextlib.ExitStack() as stack:
+            for n, (owner, attr) in owners.items():
+                stack.enter_context(capturing(owner, attr, calls[k][n]))
             eng.finish_block(eng.dispatch_block(blk, k, pad_to=BATCH))
         say(f"  one block of phase 5 at k={k}: heals {eng.stats.heals}; calls "
             f"{ {n: len(c) for n, c in calls[k].items()} }")
@@ -527,19 +544,25 @@ def main_path_kernels(idx, block_reads):
                                     multistep_work),
                "search_chain2": (search2.search_chain2, search2._chain2_plain, chain2_work),
                "locate_walk": (locate.locate_walk, locate._locate_plain, locate_work),
-               "verify_nm": (verify_nm, verify_nm_plain, verify_work)}
+               "verify_nm": (verify_nm, verify_nm_plain, verify_work),
+               "revcomp_both": (prep.revcomp_both, prep.revcomp_both_plain, revcomp_both_work),
+               "compact_slots": (compact.compact_counts, compact.compact_counts_plain,
+                                 compact_slots_work),
+               "compact_mask": (compact.compact, compact.compact_plain, compact_mask_work)}
     # (name, k, call index, time the plain version too): the first call of
     # the block at each k; the heal's re-run repeats them at doubled caps
     require(len(calls[0]["search_multistep"]) >= 1 and len(calls[2]["search_multistep"]) >= 3
             and calls[0]["search_chain2"] and len(calls[2]["search_chain2"]) >= 3
-            and calls[2]["locate_walk"] and calls[2]["verify_nm"],
+            and calls[2]["locate_walk"] and calls[2]["verify_nm"]
+            and all(calls[k][n] for k in (0, 2) for n in PACKED),
             f"the block did not reach every kernel: "
             f"{ {k: {n: len(c) for n, c in v.items()} for k, v in calls.items()} }")
     plan = [("search_multistep", 0, 0, True)] + [
         ("search_multistep", 2, i, i == 0) for i in range(3)] + [
         ("search_chain2", 0, 0, True)] + [
         ("search_chain2", 2, i, i == 0) for i in range(3)] + [
-        ("locate_walk", 2, 0, True), ("verify_nm", 2, 0, True)]
+        ("locate_walk", 2, 0, True), ("verify_nm", 2, 0, True)] + [
+        (n, k, 0, True) for n in PACKED for k in (0, 2)]
     records = {}
     for name, k, i, time_plain in plan:
         kern, plain, work = kernels[name]
@@ -571,6 +594,9 @@ def main_path_kernels(idx, block_reads):
             records[name].setdefault("k2_bound_ms", []).append(rec["bound_ms"])
             if time_plain:
                 records[name]["k2_plain_ms"] = plain_ms
+        if name in PACKED and k == 2:
+            records[name]["k2"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=rec["bound_ms"],
+                                       shape=what)
         if name not in records:
             records[name] = rec
     ms = records["search_multistep"]
@@ -580,7 +606,62 @@ def main_path_kernels(idx, block_reads):
     ms["k2_floor"] = multistep_floor(calls[2]["search_multistep"][0], "k=2 seed 0")
     multistep_edges(idx, calls[0]["search_multistep"][0])
     multistep_no_sync(idx, calls[0]["search_multistep"][0], blk)
+    records["compact_mask"].update(nonzero_static_ms(*calls[0]["compact_mask"][0]))
+    for k in (0, 2):
+        no_plain_compaction(engine.Engine([idx], device="cuda"), blk, k)
     return records
+
+
+def nonzero_static_ms(valid, cap) -> dict:
+    """compact_mask's library call: torch.nonzero_static(valid, size=cap,
+    fill_value=0), the same sel as int64, timed as the kernel is; its
+    refusal recorded where the card's torch has no CUDA version of it."""
+    import torch
+
+    from bwtpu_torch.kernels.bounds import cuda_ms
+    from bwtpu_torch.kernels.compact import compact_plain
+
+    try:
+        got = torch.nonzero_static(valid, size=cap, fill_value=0)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        say(f"  compact_mask's library call torch.nonzero_static refused: {e}")
+        return {"library_ms": None, "library_refused": str(e)[:200]}
+    require(torch.equal(got[:, 0], compact_plain(valid, cap)[0].long()),
+            "torch.nonzero_static != compact_mask's sel")
+    ms = sorted(cuda_ms(lambda: torch.nonzero_static(valid, size=cap, fill_value=0))
+                for _ in range(RUNS))[RUNS // 2]
+    say(f"  compact_mask's library call torch.nonzero_static({valid.shape[0]} lanes, size "
+        f"{cap}): the same sel; {ms:.4f} ms")
+    return {"library_ms": ms}
+
+
+PLAIN_COMPACTION = ("cummax", "scatter_reduce")  # aten ops of compact_counts_plain
+
+
+def no_plain_compaction(eng, blk, k: int) -> None:
+    """One dispatch_block + finish_block of phase 5's block at k under
+    torch.profiler (CPU and CUDA activity): no aten op or kernel of the
+    plain compaction (cummax, scatter_reduce) in the trace; its device
+    operations printed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.finish_block(eng.dispatch_block(blk, k, pad_to=BATCH))  # warm
+    for _ in range(3):  # a window with no device activity delivered is retried
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.finish_block(eng.dispatch_block(blk, k, pad_to=BATCH))
+            torch.cuda.synchronize()
+        events = prof.events()
+        dev = [e for e in events if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
+    require(dev, f"k={k}: the profiler saw no device activity of the dispatch")
+    bad = sorted({e.name for e in events if any(p in e.name for p in PLAIN_COMPACTION)})
+    require(not bad, f"k={k}: the dispatch ran the plain compaction: {bad}")
+    say(f"  one dispatch of phase 5's block at k={k} (heals {eng.stats.heals}) under "
+        f"torch.profiler: {len(dev)} device operations, none of {PLAIN_COMPACTION}")
 
 
 def chain2_floor(kern, args) -> dict:
@@ -1311,9 +1392,10 @@ def phase_main(tmp: str, genome: str, fa: str, reads, truth):
         summary = run_cli(["align", idx_dir, fq, "-o", sam, "-k", str(k),
                            "--batch-size", str(BATCH), "--device", "cuda"])
         launches = read_launches()
-        # slice 1's path: the multi-step search, its two-record finisher,
-        # locate and verify; the 1-step mainline is not on it
-        need = ("search_multistep", "locate_walk", "verify_nm", "search_chain2")
+        # slice 1's path: prep, the multi-step search, its two-record
+        # finisher, the compactions, locate and verify; the 1-step
+        # mainline is not on it
+        need = ("search_multistep", "locate_walk", "verify_nm", "search_chain2") + PACKED
         require(all(launches[n] > 0 for n in need), f"k={k}: a kernel never ran: {launches}")
         with open(sam, "rb") as f:
             sam_bytes = f.read()
@@ -1480,7 +1562,7 @@ def phase_locv(tmp: str, p5: dict, idx_dir: str):
         require(sam_bytes == b"".join(sam_parts), f"{name}: CLI SAM differs from the engine pass")
         require(summary["reads"] == N_READS and summary["truncated_reads"] == 0
                 and b"xo:i:1" not in sam_bytes, f"{name}: {summary}")
-        need = ("search_multistep", "verify_locv", "search_chain2")
+        need = ("search_multistep", "verify_locv", "search_chain2") + PACKED
         never = ("locate_walk", "verify_nm")
         require(all(launches[n] > 0 for n in need) and not any(launches[n] for n in never),
                 f"{name}: launches {launches}")
@@ -1642,10 +1724,11 @@ def phase_paired(tmp: str):
     substitutions a mate) through the port CLI at k = 0 and 2: the
     columnar path, then the paired Read-list loop (`--rescore --paired`)
     byte-equal to it; pair truth; brute force on 256 sampled mate-1 reads
-    against a single-end engine pass; no truncated read; locate_walk,
-    verify_nm and search_chain2 launched at least once per shard and
-    block. Returns the launches of the columnar runs, the build's seconds
-    and the index directory and the two FASTQs (phase 12 reuses them)."""
+    against a single-end engine pass; no truncated read; search_multistep,
+    locate_walk, verify_nm, search_chain2 and the PACKED kernels launched
+    at least once per shard and block. Returns the launches of the
+    columnar runs, the build's seconds and the index directory and the
+    two FASTQs (phase 12 reuses them)."""
     import numpy as np
     import torch
 
@@ -1719,7 +1802,8 @@ def phase_paired(tmp: str):
             if route == "columnar":
                 stats[k] = launches
                 per = {n: launches[n] / (2 * n_blocks) for n in
-                       ("search_multistep", "locate_walk", "verify_nm", "search_chain2")}
+                       ("search_multistep", "locate_walk", "verify_nm", "search_chain2")
+                       + PACKED}
                 require(all(v >= 1 for v in per.values()),
                         f"paired k={k}: launches per shard and block {per}")
                 rate = summary["reads_per_s"], summary["wall_s"]
@@ -1836,21 +1920,27 @@ def fused_traced(eng, blks, k: int, tiered: bool) -> tuple:
     the launches measured from the trace's kernel names). The measured
     launches must equal, kernel by kernel, what each replayed graph's
     capture recorded times its replays, with no graph captured and no
-    launch counter moved (a replay calls no wrapper); a window whose trace
-    falls short of that is retried, up to three in all."""
+    launch counter moved (a replay calls no wrapper). The window opens with
+    one block's dispatch that is not counted (a trace can miss the first
+    device events of a profile's first replay); the counted run is a
+    record_function range, its calls the CPU events in it and its device
+    events those that start after it opens. A window whose trace falls
+    short is retried, up to three in all."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from bwtpu_torch.kernels import _build
 
     for _ in range(3):
-        torch.cuda.synchronize()
-        n_graphs, replays = len(eng._graphs), collections.Counter(eng.graph_replays)
-        before = read_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            res = fused_run(eng, blks, k, tiered)
+            fused_run(eng, blks[:1], k, tiered)
             torch.cuda.synchronize()
+            n_graphs, replays = len(eng._graphs), collections.Counter(eng.graph_replays)
+            before = read_launches()
+            with record_function("chip_smoke.counted"):
+                res = fused_run(eng, blks, k, tiered)
+                torch.cuda.synchronize()
         require(len(eng._graphs) == n_graphs and read_launches() == before,
                 f"k={k} tiered={tiered}: a traced fused run captured a graph or launched "
                 f"through a wrapper")
@@ -1860,10 +1950,15 @@ def fused_traced(eng, blks, k: int, tiered: bool) -> tuple:
             for name, c in eng._graphs[key].launches.items():
                 want[name] += n * c
         events = prof.events()
-        dev = [e.name for e in events if e.device_type == DeviceType.CUDA]
+        span = next(e.time_range for e in events if e.name == "chip_smoke.counted"
+                    and e.device_type == DeviceType.CPU)
+        cpu = [e.name for e in events if e.device_type == DeviceType.CPU
+               and span.start <= e.time_range.start <= span.end]
+        dev = [e.name for e in events if e.device_type == DeviceType.CUDA
+               and e.time_range.start >= span.start and e.name != "chip_smoke.counted"]
         measured = _build.launches_in_trace(dev)
-        graph = sum("GraphLaunch" in e.name for e in events)
-        kernel = sum("LaunchKernel" in e.name for e in events)
+        graph = sum("GraphLaunch" in n for n in cpu)
+        kernel = sum("LaunchKernel" in n for n in cpu)
         if measured == want and graph == ran.total():
             return res, graph, kernel, len(dev), measured
     raise RuntimeError(f"chip_smoke: check failed: k={k} tiered={tiered}: {graph} graph "
@@ -1925,6 +2020,8 @@ def phase_fused(p10) -> dict:
             f"ms of {len(blks)} blocks, in turns: {'; '.join(walls)}")
         res, graph, kernel, device, measured = fused_traced(engines[True], blks, k, tiered)
         require(res[:2] == want, f"k={k} tiered={tiered}: the traced fused run differs")
+        require(all(measured[n] > 0 for n in PACKED),
+                f"k={k} tiered={tiered}: the replays ran no {PACKED}: {measured}")
         launches = {n: launches[n] + c for n, c in measured.items()}
         say(f"  traced fused run: {graph} graph launches, {kernel} kernel launches, {device} "
             f"device events; launches measured by kernel name, equal to the captures' "
@@ -2134,7 +2231,10 @@ def ring_runs(tmp: str, smi: str, name: str, device: str, backend: str, index: s
         ref = refs[label]
         require(merged == ref["sam"], f"{name} {label}: the ranks' SAM differs from the "
                                       f"single-process Engine's")
-        need = ("search_multistep", "locate_walk", "verify_nm", "search_chain2")
+        # the ring's packed pipelines return compacted candidates (bwtpu's
+        # compact ring): prep and the candidate compaction, no hit compaction
+        need = ("search_multistep", "locate_walk", "verify_nm", "search_chain2",
+                "revcomp_both", "compact_slots")
         for r in range(world):
             launches, sm = res[r][j]["launches"], res[r][j]["summary"]
             require(all(launches[n] > 0 for n in need),
@@ -2462,9 +2562,9 @@ def phase_int32(index_proc, path: str):
     dispatch_block + finish_block at k = 0 and 2: every search_multistep
     call with wide_steps 2, the first call of each k held against its plain
     version, timed, bounded and floored (multistep_shape), the block's
-    truth; search_multistep, locate_walk, verify_nm and search_chain2
-    launched. Returns the launches, the search_multistep records and the
-    arguments of int32_brute_force."""
+    truth; search_multistep, locate_walk, verify_nm, search_chain2 and the
+    PACKED kernels launched. Returns the launches, the search_multistep
+    records and the arguments of int32_brute_force."""
     import numpy as np
     import torch
 
@@ -2524,7 +2624,7 @@ def phase_int32(index_proc, path: str):
     wide = {n: [c[15] for c in v] for n, v in calls.items()}
     require(all(calls.values()) and all(w == 2 for v in wide.values() for w in v),
             f"14a: search_multistep wide_steps {wide}, expected 2 on every call")
-    need = ("search_multistep", "locate_walk", "verify_nm", "search_chain2")
+    need = ("search_multistep", "locate_walk", "verify_nm", "search_chain2") + PACKED
     require(all(launches[n] > 0 for n in need), f"14a: a kernel never ran: {launches}")
     say(f"  test_scale_int32's {len(reads)} reads at k = 0 and 2: truth as the test asserts it "
         f"({beyond} past 2^27); search_multistep calls with wide_steps 2: "
@@ -2681,7 +2781,7 @@ def check_card_half(card: dict, chip: dict, want_chip: set, what: str) -> None:
             and chip["overflow_reads"] == 0 and chip["platform"] == "cuda", f"{what}: {chip}")
     lc = card["launches"]
     require(all(lc[n] > 0 for n in ("search_multistep", "search_chain2", "locate_walk",
-                                    "verify_nm")), f"{what}: launches {lc}")
+                                    "verify_nm") + PACKED), f"{what}: launches {lc}")
 
 
 def phase_scale_script(root: str, tmp: str, run) -> dict:
@@ -2689,8 +2789,9 @@ def phase_scale_script(root: str, tmp: str, run) -> dict:
     start_scale_script: rc 0, both JSON lines with every key of the
     reference scripts', every truth recovered (the sample's and the card
     half's), every hit sound, no overflowed read, search_multistep
-    launched in both halves and search_chain2, locate_walk and verify_nm
-    in the card half; then its card half again on the kept artifact with
+    launched in both halves and search_chain2, locate_walk, verify_nm and
+    the PACKED kernels in the card half; then its card half again on the
+    kept artifact with
     --fuse: the same checks, fused_dispatch true, each graph's capture
     listed, and the same hits checked as the loop's. Returns the launches
     of the three halves."""
@@ -2732,6 +2833,9 @@ def phase_scale_script(root: str, tmp: str, run) -> dict:
     return {n: lb[n] + lc[n] + fcard["launches"][n] for n in lb}
 
 
+# the packed main path's prep and compaction kernels
+PACKED = ("revcomp_both", "compact_slots", "compact_mask")
+
 KERNELS = {  # name: (source, TPU kernel (or jnp code) it replaces)
     "sw_band": ("bwtpu_torch/csrc/sw.cu", "bwtpu/sw.py:28"),
     "locate_walk": ("bwtpu_torch/csrc/locate.cu", "bwtpu/kernels/pallas_step.py:256"),
@@ -2742,6 +2846,10 @@ KERNELS = {  # name: (source, TPU kernel (or jnp code) it replaces)
     "verify_locv": ("bwtpu_torch/csrc/verify.cu",
                     "bwtpu/kernels/verify2.py:129, bwtpu/engine.py:548"),
     "row_gather_sum": ("bwtpu_torch/csrc/gather.cu", "scripts/pallas_gather_ab.py:37"),
+    "revcomp_both": ("bwtpu_torch/csrc/prep.cu",
+                     "bwtpu/kernels/prep.py:64, bwtpu/engine.py:644"),
+    "compact_slots": ("bwtpu_torch/csrc/compact.cu", "bwtpu/kernels/compact.py:39"),
+    "compact_mask": ("bwtpu_torch/csrc/compact.cu", "bwtpu/kernels/compact.py:18"),
 }
 
 
@@ -2897,8 +3005,7 @@ def main() -> int:
     say(f"[15] all phases passed in {time.perf_counter() - t_all:.1f} s on {smi} ({builds})")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(c[k] for c in paths.values()), **records[k],
-         "library_ms": None}
+         "launches": sum(c[k] for c in paths.values()), "library_ms": None, **records[k]}
         for k, (src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

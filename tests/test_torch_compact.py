@@ -1,0 +1,228 @@
+"""The plain versions of bwtpu_torch's compaction and read-prep kernels
+(csrc/compact.cu, csrc/prep.cu) against bwtpu's jnp code, and the
+compaction callers' capacity flags against the reference's cumsum form,
+on seeded inputs at their edge cases. Exact equality (integers)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bwtpu.kernels.compact as jcompact
+import bwtpu.kernels.prep as jprep
+from bwtpu.kernels.verify2 import pack_reads as j_pack_reads
+from bwtpu_torch import engine as te
+from bwtpu_torch.kernels import compact as tcompact
+from bwtpu_torch.kernels import prep as tprep
+from bwtpu_torch.kernels import search2 as tsearch2
+
+torch.set_num_threads(1)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _eq(got, want, msg=""):
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want), err_msg=msg)
+
+
+def _cut(valid, cap):
+    """The reference callers' capacity cut: valid & (cumsum(valid) > cap)."""
+    v = jnp.asarray(valid)
+    return np.asarray(v & (jnp.cumsum(v.astype(jnp.int32)) > cap))
+
+
+# name: (lanes, capacity, mask of the lanes from rng)
+MASKS = {
+    "random": (3000, 700, lambda rng, n: rng.random(n) < 0.3),
+    "empty": (3000, 64, lambda rng, n: np.zeros(n, bool)),
+    "all_past_cap_1": (500, 1, lambda rng, n: np.ones(n, bool)),
+    "cap_1_sparse": (3000, 1, lambda rng, n: rng.random(n) < 0.01),
+    "cap_eq_lanes_full": (2048, 2048, lambda rng, n: np.ones(n, bool)),
+    "cap_eq_lanes_half": (4097, 4097, lambda rng, n: rng.random(n) < 0.5),
+    "cap_past_a_tile": (6000, 2049, lambda rng, n: rng.random(n) < 0.6),
+    "last_lane_only": (2049, 8, lambda rng, n: np.arange(n) == n - 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MASKS))
+def test_compact_plain_matches_bwtpu(case):
+    """compact_plain's (sel, count, overflow) against bwtpu's compact, its
+    over flag against the callers' cumsum cut; `compact` on CPU tensors is
+    compact_plain."""
+    n, cap, make = MASKS[case]
+    valid = make(np.random.default_rng(n + cap), n)
+    got = tcompact.compact_plain(_t(valid), cap)
+    for name, a, b in zip(("sel", "count", "overflow"), got,
+                          jcompact.compact(jnp.asarray(valid), cap), strict=False):
+        _eq(a, b, name)
+    _eq(got[3], _cut(valid, cap), "over")
+    assert got[3].dtype == torch.bool and got[0].dtype == got[1].dtype == torch.int32
+    assert int(got[3].sum()) == int(got[2]) == max(0, int(valid.sum()) - cap)
+    for a, b in zip(tcompact.compact(_t(valid), cap), got, strict=True):
+        _eq(a, b)
+
+
+def _counts_part_way(rng, n, H):
+    """Counts of 1..H whose running sum passes the capacity (returned too)
+    in the middle of a lane's slots."""
+    c = rng.integers(1, H + 1, size=n).astype(np.int32)
+    c[n // 2] = H
+    return c, int(c[: n // 2].sum()) + H // 2
+
+
+# name: (lanes, H, capacity or None, counts from rng); capacity None: the
+# counts maker also returns it
+COUNTS = {
+    "random_neg_and_past_H": (400, 8, 700, lambda rng, n, H: np.where(
+        rng.random(n) < 0.5, 0, rng.integers(-3, 2 * H, size=n)).astype(np.int32)),
+    "empty": (400, 8, 64, lambda rng, n, H: np.zeros(n, np.int32)),
+    "all_negative": (300, 4, 16, lambda rng, n, H: -rng.integers(1, 9, size=n).astype(np.int32)),
+    "every_lane_past_cap": (300, 16, 5, lambda rng, n, H: np.full(n, H, np.int32)),
+    "cap_eq_lanes": (1000, 4, 1000, lambda rng, n, H: rng.integers(0, H + 1, size=n)
+                     .astype(np.int32)),
+    "cap_1": (500, 32, 1, lambda rng, n, H: rng.integers(0, 3, size=n).astype(np.int32)),
+    "lane_cut_part_way": (600, 16, None, _counts_part_way),
+    "past_a_tile": (5000, 2, 3000, lambda rng, n, H: rng.integers(-1, 4, size=n)
+                    .astype(np.int32)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COUNTS))
+def test_compact_counts_plain_matches_bwtpu(case):
+    """compact_counts_plain against bwtpu's compact_counts on every output
+    (sel, count, overflow, dropped); dropped is exactly the lanes whose
+    slots the capacity cut; `compact_counts` on CPU tensors is the plain
+    version."""
+    n, H, cap, make = COUNTS[case]
+    rng = np.random.default_rng(n * H)
+    counts = make(rng, n, H)
+    if cap is None:
+        counts, cap = counts
+    got = tcompact.compact_counts_plain(_t(counts), H, cap)
+    for name, a, b in zip(("sel", "count", "overflow", "dropped"), got,
+                          jcompact.compact_counts(jnp.asarray(counts), H, cap), strict=True):
+        _eq(a, b, name)
+    c = np.clip(counts, 0, H)
+    end = np.cumsum(c)
+    _eq(got[3], (c > 0) & (end > cap), "dropped")
+    if case == "lane_cut_part_way":
+        lane = n // 2
+        assert end[lane] - c[lane] < cap < end[lane] and bool(got[3][lane])
+    for a, b in zip(tcompact.compact_counts(_t(counts), H, cap), got, strict=True):
+        _eq(a, b)
+
+
+def _packed(rng, B: int, L: int):
+    """pack_reads rows of random codes with a few ambiguous bases."""
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.int32)
+    amb = (rng.random((B, L)) < 0.05).astype(np.int32)
+    words, amb_bits, _ = j_pack_reads(codes, amb, np.full(B, L, np.int32))
+    return words, amb_bits
+
+
+@pytest.mark.parametrize("L", [16, 32, 100, 385, 400])
+def test_revcomp_packed_plain_matches_bwtpu(L):
+    """revcomp_packed_plain against bwtpu's revcomp_packed on packed reads
+    (L a multiple of 16 or not; W = 25 at 385 and 400 bp) and on random
+    words; revcomp_both_plain stacks the strands, forward rows first, with
+    lens2 = L."""
+    rng = np.random.default_rng(L)
+    W = (L + 15) // 16
+    words, amb = _packed(rng, 300, L)
+    noise = rng.integers(-2**31, 2**31, size=(300, W), dtype=np.int64).astype(np.int32)
+    for w in (words, noise):
+        got = tprep.revcomp_packed_plain(_t(w), _t(amb), L)
+        for a, b in zip(got, jprep.revcomp_packed(jnp.asarray(w), jnp.asarray(amb), L),
+                        strict=True):
+            _eq(a, b)
+        rw2, ab2, lens2 = tprep.revcomp_both_plain(_t(w), _t(amb), L)
+        _eq(rw2, np.concatenate([w, np.asarray(got[0])]))
+        _eq(ab2, np.concatenate([amb, np.asarray(got[1])]))
+        _eq(lens2, np.full(600, L, np.int32))
+        for a, b in zip(tprep.revcomp_both(_t(w), _t(amb), L), (rw2, ab2, lens2), strict=True):
+            _eq(a, b)
+    # a read and its reverse complement: the complement of the complement
+    rc_w, rc_a = tprep.revcomp_packed_plain(_t(words), _t(amb), L)
+    back = tprep.revcomp_packed_plain(rc_w, rc_a, L)
+    _eq(back[0], words)
+    _eq(back[1], amb)
+
+
+def test_device_prep_packed_on_cpu_is_the_plain_version():
+    """engine.device_prep_packed's four outputs on CPU tensors: the plain
+    revcomp_both and the cached length mask, expanded to 2B rows."""
+    rng = np.random.default_rng(5)
+    words, amb = _packed(rng, 64, 100)
+    rw2, ab2, lens2, lm2 = te.device_prep_packed(_t(words), _t(amb), 100)
+    for a, b in zip((rw2, ab2, lens2), tprep.revcomp_both_plain(_t(words), _t(amb), 100),
+                    strict=True):
+        _eq(a, b)
+    _eq(lm2, np.broadcast_to(te._len_mask_words(100), (128, 7)))
+
+
+def _hits_output_reference(out, k: int, Ct: int, hit_cap: int):
+    """bwtpu's "hits" tail (bwtpu/engine.py, the fused list form's `fn`) in
+    jnp: keep, compact_mask, the cumsum drop flag, the payload take."""
+    cand_c, nm_c, sel, count, overflow, _ = (jnp.asarray(np.asarray(x)) for x in out)
+    keep = (nm_c <= k) & (jnp.arange(sel.shape[0], dtype=jnp.int32) < count)
+    sel2, cnt2, hover = jcompact.compact(keep, hit_cap)
+    drop = keep & (jnp.cumsum(keep.astype(jnp.int32)) > hit_cap)
+    overflow = overflow.at[sel // Ct].add(drop.astype(jnp.int32), mode="drop")
+    payload = jnp.take(jnp.stack([cand_c, sel * 4 + nm_c], axis=1), sel2, axis=0)
+    return payload[:, 0], payload[:, 1], cnt2, hover, overflow > 0
+
+
+@pytest.mark.parametrize("hit_cap", [1, 40, 200, 4096])
+def test_hits_output_drop_matches_the_cumsum_form(hit_cap):
+    """hits_output, whose drop flag is now compact's over flag, against the
+    reference's tail with `keep & cumsum(keep) > hit_cap`: payload, count,
+    hit overflow and the per-row overflow flags (the cap cuts hits at 1,
+    40 and 200; 4096 keeps all)."""
+    rng = np.random.default_rng(hit_cap)
+    B2, Ct, n = 64, 16, 600
+    sel = np.sort(rng.choice(B2 * Ct, n, replace=False)).astype(np.int32)
+    count = 450
+    sel[count:] = 0
+    nm = rng.integers(0, 5, size=n).astype(np.int32)
+    cand = rng.integers(0, 10**6, size=n).astype(np.int32)
+    overflow = (rng.random(B2) < 0.1).astype(np.int32)
+    out = (cand, nm, sel, np.int32(count), overflow, np.int32(0))
+    got = te.hits_output(tuple(_t(x) for x in out), k=2, Ct=Ct, hit_cap=hit_cap)
+    want = _hits_output_reference(out, 2, Ct, hit_cap)
+    cnt = int(want[2])
+    _eq(got[0][:cnt], np.asarray(want[0])[:cnt], "cand")
+    _eq(got[1][:cnt], np.asarray(want[1])[:cnt], "sel * 4 + nm")
+    _eq(got[2], want[2], "count")
+    _eq(got[5], want[3], "hit overflow")
+    _eq(got[6], want[4], "overflow rows")
+    assert int(got[3]) == int(np.asarray(want[4]).sum())
+
+
+# the callers of compact with a capacity flag: (lanes, capacity, density)
+CALLERS = {
+    "tiered_escalation": (4096, 1024, 0.4),  # esc_dropped, esc_cap of B reads
+    "fixup_stragglers": (8192, 1024, 0.2),  # _force_over, max(256, B // 8)
+    "hit_compaction": (8192, 4096, 0.6),  # hits_output's drop
+}
+
+
+@pytest.mark.parametrize("caller", sorted(CALLERS))
+def test_caller_flags_match_the_cumsum_form(caller):
+    """Each caller's flag, now compact's over output, equals the reference's
+    `mask & (cumsum(mask) > cap)` on a mask of the caller's shape that
+    overruns its capacity; _force_over empties exactly those lanes."""
+    n, cap, p = CALLERS[caller]
+    rng = np.random.default_rng(n + cap)
+    mask = rng.random(n) < p
+    *_, over = tcompact.compact(_t(mask), cap)
+    want = _cut(mask, cap)
+    _eq(over, want, caller)
+    assert want.sum() > 0, "the capacity was meant to bind"
+    sp = rng.integers(1, 1000, size=n).astype(np.int32)
+    ep = sp + rng.integers(1, 50, size=n).astype(np.int32)
+    got = tsearch2._force_over(_t(sp), _t(ep), over)
+    _eq(got[0], np.where(want, 0, sp))
+    _eq(got[1], np.where(want, 0, ep))
+    _eq(got[2], want.astype(np.int32))

@@ -929,3 +929,115 @@ def test_fused_dispatch_with_finish_on_a_worker_thread(cuda):
     assert eng.graph_replays.total() == len(jobs) + eng.stats.heals, (eng.graph_replays,
                                                                       eng.stats)
     assert len(eng._graphs) > 2  # heal levels captured on the worker
+
+
+# compact_mask's cases: (lanes, capacity, density of the mask; 0 or 1 =
+# none or every lane); the last is the bench's size
+MASK_CASES = [(3000, 700, 0.3), (3000, 64, 0.0), (500, 1, 1.0), (3000, 1, 0.01),
+              (2048, 2048, 1.0), (4097, 4097, 0.5), (6000, 2049, 0.6), (0, 16, 0.5),
+              (1 << 20, 1 << 18, 0.3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,cap,p", MASK_CASES)
+def test_compact_mask_kernel_matches_plain(cuda, n, cap, p):
+    """compact (csrc/compact.cu's compact_mask) against compact_plain on
+    every output: sel, count, overflow and the over flag (an empty mask,
+    every lane past a capacity of 1, capacity = lanes, tiles cut by the
+    capacity, no lanes, 1,048,576 lanes)."""
+    from bwtpu_torch.kernels import compact as tc
+
+    rng = np.random.default_rng(n + cap)
+    valid = _t(rng.random(n) < p, cuda)
+    before = tc.compact.launches
+    got = tc.compact(valid, cap)
+    want = tc.compact_plain(valid, cap)
+    assert tc.compact.launches == before + 1
+    for name, a, b in zip(("sel", "count", "overflow", "over"), got, want, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+# compact_slots' cases: (lanes, H, capacity, counts low, counts high)
+SLOT_CASES = [(400, 8, 700, -3, 16), (400, 8, 64, 0, 1), (300, 16, 5, 16, 17),
+              (1000, 4, 1000, 0, 5), (500, 32, 1, 0, 3), (600, 16, 4500, 1, 17),
+              (5000, 2, 3000, -1, 4), (0, 4, 16, 0, 5), (1 << 20, 16, 1 << 19, -1, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,H,cap,lo,hi", SLOT_CASES)
+def test_compact_slots_kernel_matches_plain(cuda, n, H, cap, lo, hi):
+    """compact_counts (csrc/compact.cu's compact_slots) against
+    compact_counts_plain on every output: counts below 0 and above H,
+    every lane past the capacity, capacity = lanes, capacity 1, a
+    capacity inside a lane's slots, 1,048,576 lanes (plain: n > 0)."""
+    from bwtpu_torch.kernels import compact as tc
+
+    rng = np.random.default_rng(n * H + cap)
+    counts = _t(rng.integers(lo, hi, size=n).astype(np.int32), cuda)
+    before = tc.compact_counts.launches
+    got = tc.compact_counts(counts, H, cap)
+    assert tc.compact_counts.launches == before + 1
+    if n == 0:
+        assert int(got[1]) == int(got[2]) == 0 and not got[0].any() and got[3].numel() == 0
+        return
+    want = tc.compact_counts_plain(counts, H, cap)
+    for name, a, b in zip(("sel", "count", "overflow", "dropped"), got, want, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L", [(1000, 100), (777, 16), (513, 64), (300, 385), (300, 400),
+                                 (1, 1), (0, 100), (524288, 100)])
+def test_revcomp_both_kernel_matches_plain(cuda, B, L):
+    """revcomp_both (csrc/prep.cu) against revcomp_both_plain: random words
+    and ambiguity bits, L a multiple of 16 or not, W = 25, one read, no
+    read, the bench's 524,288 reads."""
+    from bwtpu_torch.kernels import prep
+
+    rng = np.random.default_rng(B + L)
+    W = (L + 15) // 16
+    words, amb = (_t(rng.integers(-2**31, 2**31, size=(B, W), dtype=np.int64)
+                     .astype(np.int32), cuda) for _ in range(2))
+    got = prep.revcomp_both(words, amb, L)
+    want = prep.revcomp_both_plain(words, amb, L)
+    for name, a, b in zip(("rw2", "ab2", "lens2"), got, want, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_compaction_and_prep_dispatch_without_sync(cuda):
+    """compact, compact_counts and engine.device_prep_packed on CUDA
+    tensors each launch their kernel and queue their work without one host
+    sync (sync debug mode "error"), equal to their plain versions."""
+    from bwtpu_torch import engine
+    from bwtpu_torch.kernels import _build
+    from bwtpu_torch.kernels import compact as tc
+    from bwtpu_torch.kernels import prep
+
+    rng = np.random.default_rng(3)
+    reads, _ = simulate_reads(GENOME, 4096, read_len=L, max_mismatches=2, n_frac=0.01, seed=35)
+    words, amb_bits = (_t(a, cuda) for a in engine.pack_reads_for_bench(reads))
+    valid = _t(rng.random(50000) < 0.4, cuda)
+    counts = _t(rng.integers(-1, 9, size=50000).astype(np.int32), cuda)
+    calls = {"compact_mask": lambda: tc.compact(valid, 8192),
+             "compact_slots": lambda: tc.compact_counts(counts, 8, 60000),
+             "revcomp_both": lambda: engine.device_prep_packed(words, amb_bits, L)}
+    plains = {"compact_mask": lambda: tc.compact_plain(valid, 8192),
+              "compact_slots": lambda: tc.compact_counts_plain(counts, 8, 60000),
+              "revcomp_both": lambda: (*prep.revcomp_both_plain(words, amb_bits, L),
+                                       engine._len_mask(L, cuda).expand(2 * len(reads), -1))}
+    _build.build_all(["compact", "prep"])
+    for fn in calls.values():  # warm: libraries, allocator, the length mask
+        fn()
+    torch.cuda.synchronize()
+    before = _build.launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = {name: fn() for name, fn in calls.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = _build.launch_counts()
+    for name in calls:
+        assert after[name] == before[name] + 1, name
+        for a, b in zip(got[name], plains[name](), strict=True):
+            assert torch.equal(a, b), name

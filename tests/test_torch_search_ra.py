@@ -234,8 +234,8 @@ def test_packed_finisher_matches_bwtpu(genomes, case, off, slen, d):
         shard.lattice, shard.C, shard.dollar_row, jnp.asarray(words), jnp.asarray(amb_bits),
         off, slen, jnp.asarray(sp0), jnp.asarray(ep0), jnp.asarray(sp), jnp.asarray(ep),
         jnp.asarray(strag), d, cap=cap)
-    sel, count, _ = tcompact.compact(_t(strag), cap)
-    got = tsearch2._force_over(_t(sp), _t(ep), _t(strag), cap)
+    sel, count, _, over = tcompact.compact(_t(strag), cap)
+    got = tsearch2._force_over(_t(sp), _t(ep), over)
     tsearchk._finisher(_t(idx.search_lattice), _t(idx.C), idx.dollar_row, _t(words),
                        _t(amb_bits), off, slen, _t(sp0), _t(ep0), sel, count, got[0], got[1],
                        d)
