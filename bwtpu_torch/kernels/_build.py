@@ -230,8 +230,10 @@ DEVICE_FUNCS = {
     "search_chain1": ("search_chain1_kernel",),
     "search_chain2": ("chain2_packed_kernel", "chain2_planes_kernel"),
     "search_multistep": ("exit_kernel",), "verify_locv": ("verify_locv_kernel",),
-    "row_gather_sum": ("row_gather_sum_kernel",), "compact_slots": ("compact_slots_kernel",),
-    "compact_mask": ("compact_mask_kernel",), "revcomp_both": ("revcomp_both_kernel",),
+    "row_gather_sum": ("row_gather_sum_kernel",),
+    "compact_slots": ("compact_slots_kernel", "compact_slots_tiles_kernel"),
+    "compact_mask": ("compact_mask_kernel", "compact_mask_tiles_kernel"),
+    "revcomp_both": ("revcomp_both_kernel",),
 }
 _FUNC = re.compile(r"(?<!\w)(" + "|".join(f for fs in DEVICE_FUNCS.values() for f in fs)
                    + r")(?!\w)")

@@ -2,13 +2,15 @@
 bwtpu/kernels/compact.py).
 
 `compact` and `compact_counts` launch the hand-written kernels of
-csrc/compact.cu on CUDA tensors (`compact_mask` and `compact_slots`: one
-memset and one single-pass scan a call, no host sync) and run their plain
-versions `compact_plain` and `compact_counts_plain` on CPU tensors;
-anything else raises, and nothing falls back. The plain versions are the
-port's torch forms of the reference: its `.at[...](mode="drop")`
-scatters become scatters into one extra spill slot that is sliced off.
-Overflow is counted, never silent.
+csrc/compact.cu on CUDA tensors (`compact_mask` and `compact_slots`; no
+host sync) and run their plain versions `compact_plain` and
+`compact_counts_plain` on CPU tensors; anything else raises, and nothing
+falls back. Up to one cluster's capacity (32,768 lanes on an H100) a
+call is one kernel on one thread-block cluster (no memset, no scratch
+kept between calls); above it, a memset and a kernel whose tiles chain by
+decoupled look-back (`plan`). The plain versions are the port's torch forms of the
+reference: its `.at[...](mode="drop")` scatters become scatters into one
+extra spill slot that is sliced off. Overflow is counted, never silent.
 """
 
 from __future__ import annotations
@@ -49,15 +51,9 @@ def compact(valid: torch.Tensor, capacity: int):
     if not _build.on_cuda("compact_mask", valid):
         return compact_plain(valid, capacity)
     _build.check_tensor("compact_mask", "valid", valid, torch.bool, 1, valid.device)
-    lib, tile = _lib()
-    n = valid.shape[0]
-    ws = _workspace(n, capacity, tile, valid.device)
-    over = torch.empty(n, dtype=torch.bool, device=valid.device)
-    rc = lib.bwtpu_compact_mask(valid.data_ptr(), n, capacity, ws.data_ptr(), ws.numel(),
-                                over.data_ptr(), _build.stream_of(valid))
-    _build.check(lib, rc, "compact_mask")
+    out = _launch("compact_mask", valid, 1, capacity)
     _build.count_launch(compact)
-    return ws[:capacity], ws[capacity], ws[capacity + 1], over
+    return out
 
 
 compact.launches = 0  # kernel launches since the last reset
@@ -97,40 +93,84 @@ def compact_counts(counts: torch.Tensor, H: int, capacity: int):
     if not _build.on_cuda("compact_slots", counts):
         return compact_counts_plain(counts, H, capacity)
     _build.check_tensor("compact_slots", "counts", counts, torch.int32, 1, counts.device)
-    lib, tile = _lib()
-    n = counts.shape[0]
-    ws = _workspace(n, capacity, tile, counts.device)
-    dropped = torch.empty(n, dtype=torch.bool, device=counts.device)
-    rc = lib.bwtpu_compact_slots(counts.data_ptr(), n, H, capacity, ws.data_ptr(), ws.numel(),
-                                 dropped.data_ptr(), _build.stream_of(counts))
-    _build.check(lib, rc, "compact_slots")
+    out = _launch("compact_slots", counts, H, capacity)
     _build.count_launch(compact_counts)
-    return ws[:capacity], ws[capacity], ws[capacity + 1], dropped
+    return out
 
 
 compact_counts.launches = 0  # kernel launches since the last reset
 
 
-def _workspace(n: int, capacity: int, tile: int, device):
-    """The kernels' int32 workspace: sel[capacity], count, overflow, the
-    ticket, one look-back word a tile of `tile` lanes (the entry point
-    zeroes it)."""
-    return torch.empty(capacity + 3 + max(1, -(-n // tile)), dtype=torch.int32,
-                       device=device)
+def plan(n: int, capacity: int, cluster_ctas: int, tile: int):
+    """(form, ws_words) of a call on n lanes: the one place that picks a
+    call's form and sizes its workspace. Up to one cluster's capacity (the
+    device's `cluster_ctas` CTAs of `tile` lanes) form is the cluster
+    form's CTA count, the fewest (a power of two) that hold the lanes,
+    with a workspace of sel[capacity], count and overflow; above it (and
+    for any n > 0 at cluster_ctas 0), 0: the tiles form, whose workspace
+    adds the ticket and one look-back word a tile. The edge between the
+    two is the cluster's capacity: clusters holding more lanes were slower
+    than the tiles form on the card (scripts/torch_compact_ab.py, PERF.md
+    §6)."""
+    if n <= cluster_ctas * tile:
+        ctas = 1
+        while ctas * tile < n:
+            ctas *= 2
+        return ctas, capacity + 2
+    return 0, capacity + 3 + max(1, -(-n // tile))
+
+
+def _launch(kernel: str, x: torch.Tensor, H: int, capacity: int):
+    """One call of compact.cu's `kernel` on x (a mask, or int32 counts of
+    H slots a lane): (sel, count, overflow, flag) as views of one int32
+    workspace and one bool tensor."""
+    lib = _lib()
+    n = x.shape[0]
+    form, words = plan(n, capacity, _cluster_ctas(lib, x.device), lib.tile)
+    ws = torch.empty(words, dtype=torch.int32, device=x.device)
+    flag = torch.empty(n, dtype=torch.bool, device=x.device)
+    stream = _build.stream_of(x)
+    if kernel == "compact_mask":
+        rc = lib.bwtpu_compact_mask(x.data_ptr(), n, capacity, form, ws.data_ptr(), words,
+                                    flag.data_ptr(), stream)
+    else:
+        rc = lib.bwtpu_compact_slots(x.data_ptr(), n, H, capacity, form, ws.data_ptr(), words,
+                                     flag.data_ptr(), stream)
+    _build.check(lib, rc, kernel)
+    sel, scalars, _ = ws.split((capacity, 2, words - capacity - 2))
+    count, overflow = scalars.unbind()
+    return sel, count, overflow, flag
+
+
+def _cluster_ctas(lib, device) -> int:
+    """The cluster size compact.cu finds placeable on `device`, asked once
+    a device (which also allows that size there) and kept here."""
+    ctas = lib.cluster_ctas.get(device.index)
+    if ctas is None:
+        out = ctypes.c_int()
+        with torch.cuda.device(device):
+            rc = lib.bwtpu_compact_cluster_query(ctypes.byref(out))
+        _build.check(lib, rc, "compact cluster query")
+        ctas = lib.cluster_ctas[device.index] = out.value
+    return ctas
 
 
 def _lib():
-    """(library, lanes a CTA) of compact.cu."""
+    """compact.cu's library, with its entry points typed and its lanes a
+    CTA (`tile`) read."""
     lib = _build.library("compact")
-    if lib.bwtpu_compact_mask.argtypes is None:
+    if not hasattr(lib, "cluster_ctas"):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.bwtpu_compact_mask.restype = i
-        lib.bwtpu_compact_mask.argtypes = [p, i, i, p, i, p, p]
+        lib.bwtpu_compact_mask.argtypes = [p, i, i, i, p, i, p, p]
         lib.bwtpu_compact_slots.restype = i
-        lib.bwtpu_compact_slots.argtypes = [p, i, i, i, p, i, p, p]
+        lib.bwtpu_compact_slots.argtypes = [p, i, i, i, i, p, i, p, p]
+        lib.bwtpu_compact_cluster_query.restype = i
+        lib.bwtpu_compact_cluster_query.argtypes = [p]
         lib.bwtpu_compact_tile.restype = i
         lib.tile = lib.bwtpu_compact_tile()
-    return lib, lib.tile
+        lib.cluster_ctas = {}
+    return lib
 
 
 def scatter_back(values: torch.Tensor, sel: torch.Tensor, count, total: int, fill):

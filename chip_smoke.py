@@ -16,7 +16,10 @@ Phases, in order; any failure raises and the exit code is not 0:
      search_multistep, search_chain2, locate_walk, verify_nm, revcomp_both,
      compact_slots and compact_mask on the very arguments one block of
      phase 5's reads hands them (k = 0 and k = 2; compact_mask's library
-     call torch.nonzero_static timed beside it;
+     call torch.nonzero_static timed beside it; both compactions also on
+     their empty call, and on phase 5's k = 2 call tiled to both sides of
+     the edge between their two forms, with the cluster size compact.cu
+     found placeable;
      search_multistep also as the whole search_early_stop_packed against
      its plain version, its floors (the empty call, the lane with the
      largest exit trip alone) and the operations one whole call puts on
@@ -141,7 +144,10 @@ Phases, in order; any failure raises and the exit code is not 0:
           (scale_human_chip.py's --batch) through dispatch_block +
           finish_block at k = 0 and 2: every search_multistep call with
           wide_steps 2, the first of each k held against its plain version,
-          timed, bounded and floored as in phase 10; the block's truth;
+          timed, bounded and floored as in phase 10, and the first
+          compact_slots and compact_mask call of each k (131,072 and
+          393,216 candidate lanes) held against its plain version and
+          timed; the block's truth;
           brute force over the whole shard on as many sampled reads as fit
           in 30 s (at least 16); search_multistep, locate_walk, verify_nm,
           search_chain2, revcomp_both, compact_slots and compact_mask
@@ -607,9 +613,90 @@ def main_path_kernels(idx, block_reads):
     multistep_edges(idx, calls[0]["search_multistep"][0])
     multistep_no_sync(idx, calls[0]["search_multistep"][0], blk)
     records["compact_mask"].update(nonzero_static_ms(*calls[0]["compact_mask"][0]))
+    for name in ("compact_slots", "compact_mask"):
+        records[name].update(compaction_edges(name, calls[0][name][0], calls[2][name][0]))
+    records["compact_slots"]["cluster"] = compaction_cluster()
     for k in (0, 2):
         no_plain_compaction(engine.Engine([idx], device="cuda"), blk, k)
     return records
+
+
+def compaction_kernels(name: str):
+    """(wrapper, plain version, work) of a compaction kernel."""
+    from bwtpu_torch.kernels import compact
+    from bwtpu_torch.kernels.bounds import compact_mask_work, compact_slots_work
+
+    if name == "compact_slots":
+        return compact.compact_counts, compact.compact_counts_plain, compact_slots_work
+    return compact.compact, compact.compact_plain, compact_mask_work
+
+
+def compaction_call(name: str, label: str, args) -> dict:
+    """One compaction call held against its plain version on every
+    output and timed (RUNS timings, their median), with its bound and the
+    form the wrapper's plan took."""
+    import torch
+
+    from bwtpu_torch.kernels import compact
+    from bwtpu_torch.kernels.bounds import bound, cuda_ms
+
+    kern, plain, work = compaction_kernels(name)
+    got, want = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(got, want, strict=True)),
+            f"{name} != plain on the {label} call")
+    runs = sorted(cuda_ms(lambda: kern(*args)) for _ in range(RUNS))
+    nbytes, ops, what = work(args)
+    lib = compact._lib()
+    form = compact.plan(args[0].shape[0], args[-1], compact._cluster_ctas(lib, args[0].device),
+                        lib.tile)[0]
+    form = f"cluster of {form} CTAs" if form else "tiles"
+    rec = dict(ms=runs[RUNS // 2], form=form, **bound(nbytes, ops))
+    say(f"  {name} {label} ({what}; {form}): equal on every output; kernel {rec['ms']:.4f} ms "
+        f"(runs {runs[0]:.4f}-{runs[-1]:.4f}); bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']})")
+    return rec
+
+
+def compaction_cluster() -> dict:
+    """The cluster compact.cu's cluster form takes on this card (the
+    widest of 16, 8, 4, 2, 1 CTAs that cudaOccupancyMaxActiveClusters
+    places)."""
+    import torch
+
+    from bwtpu_torch.kernels import compact
+
+    lib = compact._lib()
+    ctas = compact._cluster_ctas(lib, torch.device("cuda", 0))
+    say(f"  compact.cu's cluster form: a cluster of {ctas} CTAs of {lib.tile} lanes; the "
+        f"tiles form above {ctas * lib.tile} lanes")
+    return {"ctas": ctas}
+
+
+def compaction_edges(name: str, args0, args2) -> dict:
+    """A compaction kernel's empty call (every count 0 / every lane false
+    at the main path's k = 0 shape and capacity: its launch floor), and
+    the edge between its forms: phase 5's k = 2 call tiled (capacity
+    scaled alike) to one cluster's capacity and one lane more; each held
+    against the plain version and timed."""
+    import torch
+
+    from bwtpu_torch.kernels import compact
+
+    lib = compact._lib()
+    x = args2[0]
+    cluster = compact._cluster_ctas(lib, x.device) * lib.tile
+    edges = {}
+    for m in (cluster, cluster + 1):
+        big = x.repeat(-(-m // x.shape[0]))[:m].contiguous()
+        rec = compaction_call(name, f"edge {m} lanes",
+                              (big, *args2[1:-1], max(1, args2[-1] * m // x.shape[0])))
+        edges[str(m)] = {"ms": rec["ms"], "bound_ms": rec["bound_ms"], "form": rec["form"]}
+        del big
+    torch.cuda.empty_cache()
+    empty = compaction_call(name, "empty call at k=0 call 0's shape",
+                            (torch.zeros_like(args0[0]), *args0[1:]))
+    return {"empty_ms": empty["ms"], "edges": edges}
 
 
 def nonzero_static_ms(valid, cap) -> dict:
@@ -2563,11 +2650,14 @@ def phase_int32(index_proc, path: str):
     call with wide_steps 2, the first call of each k held against its plain
     version, timed, bounded and floored (multistep_shape), the block's
     truth; search_multistep, locate_walk, verify_nm, search_chain2 and the
-    PACKED kernels launched. Returns the launches, the search_multistep
-    records and the arguments of int32_brute_force."""
+    PACKED kernels launched; the first compact_slots and compact_mask call
+    of the block at each k held against its plain version and timed.
+    Returns the launches, the search_multistep records, the arguments of
+    int32_brute_force and the compaction records."""
     import numpy as np
     import torch
 
+    from bwtpu_torch import engine
     from bwtpu_torch.engine import Engine
     from bwtpu_torch.index import load_index
     from bwtpu_torch.io import Read
@@ -2615,8 +2705,11 @@ def phase_int32(index_proc, path: str):
                 require(t["nm"] > k or any(h.pos == t["pos"] and h.strand == t["strand"]
                                            and h.nm == t["nm"] for h in hits),
                         f"14a test reads k={k}: {r.rid} {t} not in {hits[:4]}")
+    comp = {name: {0: [], 2: []} for name in ("compact_slots", "compact_mask")}
     for k in (0, 2):
-        with capturing(searchk, "search_multistep", calls[k]):
+        with capturing(searchk, "search_multistep", calls[k]), \
+                capturing(engine, "compact_counts", comp["compact_slots"][k]), \
+                capturing(engine, "compact", comp["compact_mask"][k]):
             flats[k] = eng.finish_block(eng.dispatch_block(blk, k, pad_to=blk.n))
     launches = read_launches()
     beyond = sum(1 for t in truth if t["pos"] > 2**27)
@@ -2648,7 +2741,10 @@ def phase_int32(index_proc, path: str):
             f"{eng.stats.heals} so far")
     records = {f"k{k}": multistep_shape(f"268 Mbp shard k={k} call 0", calls[k][0])
                for k in (0, 2)}
-    return launches, records, (genome, block_reads, cols)
+    comp_records = {name: {f"k{k}": compaction_call(name, f"268 Mbp shard k={k} call 0",
+                                                    c[k][0]) for k in (0, 2)}
+                    for name, c in comp.items()}
+    return launches, records, (genome, block_reads, cols), comp_records
 
 
 def int32_brute_force(genome: str, block_reads, cols) -> None:
@@ -2946,8 +3042,10 @@ def run_phases(tmp: str, root: str, smi: str, genome: str, list_reads, list_trut
     ring_launches = phase_ring(tmp, smi, idx_dir, p5["fq"], reads, p10)
     bench_launches, profile_launches = phase_bench(tmp, smi, root, idx_dir, p5)
     t0 = time.perf_counter()
-    int32_launches, records["search_multistep"]["human"], bf_args = phase_int32(
+    int32_launches, records["search_multistep"]["human"], bf_args, comp = phase_int32(
         index_proc, int32_dir)
+    for name, rec in comp.items():
+        records[name]["int32"] = rec
     script = start_scale_script(root, tmp)  # 14b runs beside 14a's brute force
     try:
         int32_brute_force(*bf_args)

@@ -226,3 +226,53 @@ def test_caller_flags_match_the_cumsum_form(caller):
     _eq(got[0], np.where(want, 0, sp))
     _eq(got[1], np.where(want, 0, ep))
     _eq(got[2], want.astype(np.int32))
+
+
+# csrc/compact.cu's lanes a CTA (a cluster's CTA or a tile)
+TILE = 2048
+# lane counts: none, one, one CTA's, half a cluster, the cluster's
+# capacity at 16 CTAs and one more, the main path's calls (phase 5's block
+# k = 0 and 2, the hit compaction, phase 14a's and the human-scale blocks
+# k = 0 and 2), the bench's k = 0 and k = 2 calls
+PLAN_LANES = [0, 1, 2048, 2049, 16384, 32768, 32769, 65536, 98304, 131072, 262144, 262145,
+              393216, 1 << 20, 3 << 20]
+
+
+@pytest.mark.parametrize("cluster_ctas", [16, 8, 1])
+@pytest.mark.parametrize("n", PLAN_LANES)
+def test_compact_plan_sizes_and_form(n, cluster_ctas):
+    """plan's choice of form and its workspace: the cluster form up to one
+    cluster's capacity, on the fewest power-of-two CTAs that hold the
+    lanes, with sel, count and overflow alone; the tiles form above, with
+    the ticket and a look-back word a tile."""
+    cap = 65536
+    form, words = tcompact.plan(n, cap, cluster_ctas, TILE)
+    if n <= cluster_ctas * TILE:
+        assert words == cap + 2
+        assert 1 <= form <= cluster_ctas and form & (form - 1) == 0
+        assert form * TILE >= n and (form == 1 or (form // 2) * TILE < n)
+    else:
+        assert form == 0 and words == cap + 3 + -(-n // TILE)
+    # on 16 CTAs the main path's k = 0 block call (32,768 lanes) is one
+    # cluster; from the hit compaction's 65,536 lanes on, the tiles form
+    if cluster_ctas == 16 and n == 32768:
+        assert form == 16
+    if n >= 65536:
+        assert form == 0
+
+
+@pytest.mark.parametrize("n", PLAN_LANES[1:])
+def test_compact_plan_tiles_at_no_cluster(n):
+    """With no cluster (cluster_ctas 0) every call of lanes takes the tiles
+    form, whose workspace has at least one look-back word."""
+    assert tcompact.plan(n, 16, 0, TILE) == (0, 19 + max(1, -(-n // TILE)))
+
+
+def test_compact_plan_form_edges():
+    """At one cluster's capacity the cluster form on the whole cluster;
+    one lane more, the tiles form."""
+    for cluster_ctas in (16, 8, 4):
+        edge = cluster_ctas * TILE
+        assert tcompact.plan(edge, 16, cluster_ctas, TILE) == (cluster_ctas, 18)
+        assert tcompact.plan(edge + 1, 16, cluster_ctas, TILE) == (
+            0, 19 + -(-(edge + 1) // TILE))

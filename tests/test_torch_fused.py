@@ -218,6 +218,12 @@ def test_launches_recorded_into_a_graph_are_tallied_not_counted():
                    "at::native::vectorized_elementwise_kernel<4>"], 2),
     ("search_chain2", ["chain2_packed_kernel(int4 const*)", "chain2_planes_kernel(int)",
                        "my_chain2_packed_kernel_x"], 2),
+    ("compact_slots", ["(anonymous namespace)::compact_slots_kernel(int const*, int, int*)",
+                       "(anonymous namespace)::compact_slots_tiles_kernel(int const*, int)",
+                       "Memset (Device)"], 2),
+    ("compact_mask", ["(anonymous namespace)::compact_mask_kernel(bool const*, int, bool*)",
+                      "(anonymous namespace)::compact_mask_tiles_kernel(bool const*, int)",
+                      "my_compact_mask_kernel_x"], 2),
 ])
 def test_launches_in_trace_by_kernel_name(kernel, names, want):
     """A trace's device kernel names map to the wrapper that launches them,

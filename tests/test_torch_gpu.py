@@ -14,6 +14,7 @@ import torch
 from bwtpu_torch import dna
 from bwtpu_torch.config import EngineConfig
 from bwtpu_torch.index import build_fm_index
+from bwtpu_torch.kernels import compact as compact_kernels
 from bwtpu_torch.kernels import search2
 from bwtpu_torch.kernels.locate import _locate_plain, locate_walk
 from bwtpu_torch.kernels.verify2 import build_text_rows, pack_reads, verify_nm
@@ -932,10 +933,19 @@ def test_fused_dispatch_with_finish_on_a_worker_thread(cuda):
 
 
 # compact_mask's cases: (lanes, capacity, density of the mask; 0 or 1 =
-# none or every lane); the last is the bench's size
+# none or every lane; capacity None = the mask's own count); then the
+# main path's calls (the hit compaction's 65,536 candidate lanes at k = 0
+# and 2, phase 14a's 131,072 and the human-scale k = 2 block's 393,216)
+# with capacities below, at and above the count, the two sides of one
+# cluster's capacity (16 CTAs of 2,048 lanes: the edge between the forms),
+# half of it, and the bench's size
+CLUSTER = 16 * 2048
 MASK_CASES = [(3000, 700, 0.3), (3000, 64, 0.0), (500, 1, 1.0), (3000, 1, 0.01),
               (2048, 2048, 1.0), (4097, 4097, 0.5), (6000, 2049, 0.6), (0, 16, 0.5),
-              (1 << 20, 1 << 18, 0.3)]
+              (65536, 32768, 0.08), (65536, 32768, 0.65), (131072, 65536, 0.3),
+              (131072, None, 0.3), (393216, 262144, 0.5), (393216, 4096, 0.5),
+              (393216, None, 0.01), (CLUSTER, 16384, 0.4), (CLUSTER + 1, 16384, 0.4),
+              (CLUSTER // 2, 4096, 0.4), (CLUSTER - 1, 4096, 0.9), (1 << 20, 1 << 18, 0.3)]
 
 
 @pytest.mark.gpu
@@ -944,11 +954,12 @@ def test_compact_mask_kernel_matches_plain(cuda, n, cap, p):
     """compact (csrc/compact.cu's compact_mask) against compact_plain on
     every output: sel, count, overflow and the over flag (an empty mask,
     every lane past a capacity of 1, capacity = lanes, tiles cut by the
-    capacity, no lanes, 1,048,576 lanes)."""
+    capacity, no lanes, the main path's shapes, both forms)."""
     from bwtpu_torch.kernels import compact as tc
 
-    rng = np.random.default_rng(n + cap)
+    rng = np.random.default_rng(n + (cap or 7))
     valid = _t(rng.random(n) < p, cuda)
+    cap = int(valid.sum()) if cap is None else cap
     before = tc.compact.launches
     got = tc.compact(valid, cap)
     want = tc.compact_plain(valid, cap)
@@ -957,10 +968,20 @@ def test_compact_mask_kernel_matches_plain(cuda, n, cap, p):
         assert a.dtype == b.dtype and torch.equal(a, b), name
 
 
-# compact_slots' cases: (lanes, H, capacity, counts low, counts high)
+# compact_slots' cases: (lanes, H, capacity, counts low, counts high;
+# capacity None = the clamped counts' total); then the main path's calls
+# (phase 5's k = 0 and k = 2 blocks, phase 14a's and the human-scale
+# blocks: H 16 / 32) with capacities below, at and above the total, the
+# two sides of one cluster's capacity, half of it, and the bench's size
 SLOT_CASES = [(400, 8, 700, -3, 16), (400, 8, 64, 0, 1), (300, 16, 5, 16, 17),
               (1000, 4, 1000, 0, 5), (500, 32, 1, 0, 3), (600, 16, 4500, 1, 17),
-              (5000, 2, 3000, -1, 4), (0, 4, 16, 0, 5), (1 << 20, 16, 1 << 19, -1, 3)]
+              (5000, 2, 3000, -1, 4), (0, 4, 16, 0, 5),
+              (32768, 16, 65536, -1, 3), (32768, 16, 4096, -1, 3), (98304, 32, 65536, -1, 3),
+              (98304, 32, None, -1, 40), (131072, 16, 262144, -1, 3),
+              (131072, 16, None, 0, 2), (393216, 32, 131072, -1, 3),
+              (393216, 32, 786432, 0, 5), (CLUSTER, 16, 8192, -1, 3),
+              (CLUSTER + 1, 16, 8192, -1, 3), (CLUSTER // 2, 32, 1 << 18, -1, 40),
+              (CLUSTER - 3, 32, 1000, 0, 33), (1 << 20, 16, 1 << 19, -1, 3)]
 
 
 @pytest.mark.gpu
@@ -969,11 +990,13 @@ def test_compact_slots_kernel_matches_plain(cuda, n, H, cap, lo, hi):
     """compact_counts (csrc/compact.cu's compact_slots) against
     compact_counts_plain on every output: counts below 0 and above H,
     every lane past the capacity, capacity = lanes, capacity 1, a
-    capacity inside a lane's slots, 1,048,576 lanes (plain: n > 0)."""
+    capacity inside a lane's slots, the main path's shapes, both forms
+    (plain: n > 0)."""
     from bwtpu_torch.kernels import compact as tc
 
-    rng = np.random.default_rng(n * H + cap)
+    rng = np.random.default_rng(n * H + (cap or 7))
     counts = _t(rng.integers(lo, hi, size=n).astype(np.int32), cuda)
+    cap = int(counts.clamp(0, H).sum()) if cap is None else cap
     before = tc.compact_counts.launches
     got = tc.compact_counts(counts, H, cap)
     assert tc.compact_counts.launches == before + 1
@@ -983,6 +1006,100 @@ def test_compact_slots_kernel_matches_plain(cuda, n, H, cap, lo, hi):
     want = tc.compact_counts_plain(counts, H, cap)
     for name, a, b in zip(("sel", "count", "overflow", "dropped"), got, want, strict=True):
         assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+def _direct(lib, kernel, x, H, cap, form, words):
+    """One call of compact.cu's entry point in `form` (>= 1: the cluster
+    form on that many CTAs, 0: the tiles form): (rc, sel, count,
+    overflow, flag)."""
+    from bwtpu_torch.kernels import _build
+
+    ws = torch.empty(words, dtype=torch.int32, device=x.device)
+    flag = torch.empty(x.shape[0], dtype=torch.bool, device=x.device)
+    head = (x.data_ptr(), x.shape[0]) + ((H,) if kernel == "slots" else ())
+    rc = getattr(lib, f"bwtpu_compact_{kernel}")(*head, cap, form, ws.data_ptr(), words,
+                                                 flag.data_ptr(), _build.stream_of(x))
+    return rc, ws[:cap], ws[cap], ws[cap + 1], flag
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["mask", "slots"])
+def test_compact_both_forms_at_one_clusters_capacity(cuda, kernel):
+    """At the lanes one cluster holds (the device's cluster size x 2,048)
+    both forms equal the plain version; one lane more the cluster form
+    refuses the call, and so it does an odd CTA count, a form below 0 and
+    a workspace of the other form's size; the tiles form takes it."""
+    from bwtpu_torch.kernels import compact as tc
+
+    lib = tc._lib()
+    ctas = tc._cluster_ctas(lib, cuda)
+    assert ctas in (1, 2, 4, 8, 16)
+    cap = 1 << 14
+    rng = np.random.default_rng(ctas)
+    for n in (ctas * lib.tile, ctas * lib.tile + 1):
+        if kernel == "mask":
+            x, H = _t(rng.random(n) < 0.3, cuda), 1
+            want = tc.compact_plain(x, cap)
+        else:
+            x, H = _t(rng.integers(-1, 3, size=n).astype(np.int32), cuda), 16
+            want = tc.compact_counts_plain(x, H, cap)
+        runs = [(0, cap + 3 + -(-n // lib.tile))]
+        if n == ctas * lib.tile:
+            runs.append((ctas, cap + 2))
+        else:
+            rc = _direct(lib, kernel, x, H, cap, ctas, cap + 2)[0]
+            assert rc != 0, "the cluster form took more lanes than it holds"
+        if ctas > 1:
+            assert _direct(lib, kernel, x, H, cap, 3, cap + 2)[0] != 0
+        assert _direct(lib, kernel, x, H, cap, 1, cap + 3 + -(-n // lib.tile))[0] != 0
+        assert _direct(lib, kernel, x, H, cap, 0, cap + 2)[0] != 0
+        assert _direct(lib, kernel, x, H, cap, -1, cap + 3 + -(-n // lib.tile))[0] != 0
+        for form, words in runs:
+            rc, *got = _direct(lib, kernel, x, H, cap, form, words)
+            torch.cuda.synchronize()
+            assert rc == 0, (form, rc)
+            for name, a, b in zip(("sel", "count", "overflow", "flag"), got, want, strict=True):
+                assert torch.equal(a, b), (form, name)
+
+
+@pytest.mark.gpu
+def test_compaction_graph_capture_and_replay(cuda):
+    """Both wrappers captured into one CUDA graph, in every form (phase 5's
+    k = 0 candidate lanes and hit compaction, its k = 2 shapes, the bench's),
+    then replayed on new inputs copied into the captured ones: every replay
+    equals the plain versions on those inputs (nothing left over from a
+    replay or the capture)."""
+    from bwtpu_torch.kernels import compact as tc
+
+    rng = np.random.default_rng(5)
+    shapes = [(32768, 16384, 32768, 16, 65536), (65536, 32768, 98304, 32, 65536),
+              (1 << 20, 1 << 18, 1 << 20, 16, 1 << 19)]
+    ins = [(torch.zeros(nm, dtype=torch.bool, device=cuda),
+            torch.zeros(ns, dtype=torch.int32, device=cuda)) for nm, _, ns, _, _ in shapes]
+
+    def run():
+        return [(tc.compact(v, cm), tc.compact_counts(c, H, cs))
+                for (v, c), (_, cm, _, H, cs) in zip(ins, shapes, strict=True)]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = run()
+    for rep in range(3):
+        for (v, c), (nm, _, ns, _, _) in zip(ins, shapes, strict=True):
+            v.copy_(_t(rng.random(nm) < 0.2 + 0.3 * rep, cuda))
+            c.copy_(_t(rng.integers(-1, 2 + 2 * rep, size=ns).astype(np.int32), cuda))
+        g.replay()
+        torch.cuda.synchronize()
+        for (v, c), (_, cm, _, H, cs), (gm, gs) in zip(ins, shapes, outs, strict=True):
+            for a, b in zip(gm, tc.compact_plain(v, cm), strict=True):
+                assert torch.equal(a, b), ("mask", rep)
+            for a, b in zip(gs, tc.compact_counts_plain(c, H, cs), strict=True):
+                assert torch.equal(a, b), ("slots", rep)
 
 
 @pytest.mark.gpu
