@@ -15,7 +15,8 @@ bwtpu:
 
 Uniform-length input with the multi-step lattice and d >= 1 runs the
 packed pipelines (both strands stacked, rows [0, B) forward and
-[B, 2B) reverse):
+[B, 2B) reverse; the engine uploads the reads into rows [0, B) and preps
+the rest once a batch for every shard):
 
   device_prep_packed -> search_early_stop_packed (one per seed slot at
   k > 0) -> ONE compaction of all candidate rows -> locate + verify
@@ -339,11 +340,13 @@ def device_prep_uniform(read_words, amb_bits, L: int, k: int):
     return codes2, amb2, lens2, rw2, ab2, lm2, seeds
 
 
-def device_prep_packed(read_words, amb_bits, L: int):
+def device_prep_packed(read_words, amb_bits, L: int, out=None):
     """Both-strand packed rows: (rw2, ab2, lens2, lm2), forward rows first
-    (revcomp_both: one kernel on the card)."""
+    (revcomp_both: one kernel on the card). out = (rw2, ab2), int32[2B, W]
+    planes to write into: where read_words and amb_bits are their rows
+    [0, B), as Engine uploads a block, only the reverse half is written."""
     B, W = read_words.shape
-    rw2, ab2, lens2 = revcomp_both(read_words, amb_bits, L)
+    rw2, ab2, lens2 = revcomp_both(read_words, amb_bits, L, out)
     return rw2, ab2, lens2, _len_mask(L, read_words.device).unsqueeze(0).expand(2 * B, W)
 
 
@@ -493,7 +496,16 @@ def exact_pipeline_packed(shard: Shard, read_words, amb_bits, *, L, d, max_hits,
         return exact_pipeline(shard, ra2, raa2, lens2, d=d, max_hits=max_hits,
                               sa_rate=sa_rate, loc_factor=loc_factor,
                               cap_scale=cap_scale)
-    rw2, ab2, lens2, lm2 = device_prep_packed(read_words, amb_bits, L)
+    return _exact_packed(shard, device_prep_packed(read_words, amb_bits, L), L=L, d=d,
+                         max_hits=max_hits, sa_rate=sa_rate, loc_factor=loc_factor,
+                         min_trips=min_trips, cap_scale=cap_scale, wide_steps=wide_steps)
+
+
+def _exact_packed(shard: Shard, prep, *, L, d, max_hits, sa_rate, loc_factor, min_trips,
+                  cap_scale, wide_steps):
+    """exact_pipeline_packed's multi-step path on reads already prepped:
+    prep = device_prep_packed's (rw2, ab2, lens2, lm2)."""
+    rw2, ab2, lens2, lm2 = prep
     sp, ep, rem, fix_over = search_early_stop_packed(
         shard.lattice, shard.latk, shard.latk_inv, shard.C, shard.dollar_row,
         shard.kmer_tables[d], rw2, ab2, 0, L, d, shard_occ_step(shard),
@@ -520,18 +532,19 @@ def inexact_pipeline_packed(shard: Shard, read_words, amb_bits, *, L, k, d,
         return inexact_pipeline(shard, *seeds, rw2, ab2, lm2, lens2, k=k, d=d,
                                 max_loc=max_loc, sa_rate=sa_rate,
                                 loc_factor=loc_factor, cap_scale=cap_scale)
-    rw2, ab2, lens2, lm2 = device_prep_packed(read_words, amb_bits, L)
-    return _seed_expand_packed(shard, rw2, ab2, lm2, lens2, L=L, k=k, d=d,
-                               max_loc=max_loc, sa_rate=sa_rate,
+    return _seed_expand_packed(shard, device_prep_packed(read_words, amb_bits, L), L=L,
+                               k=k, d=d, max_loc=max_loc, sa_rate=sa_rate,
                                loc_factor=loc_factor, min_trips=min_trips,
                                cap_scale=cap_scale, wide_steps=wide_steps)
 
 
-def _seed_expand_packed(shard: Shard, rw2, ab2, lm2, lens2, *, L, k, d, max_loc,
-                        sa_rate, loc_factor, min_trips, cap_scale, wide_steps=0):
+def _seed_expand_packed(shard: Shard, prep, *, L, k, d, max_loc, sa_rate, loc_factor,
+                        min_trips, cap_scale, wide_steps=0):
     """Pigeonhole seed expansion on already-prepped both-strand packed
-    rows (shared by inexact_pipeline_packed and the tiered path, which
-    runs it on a compacted escalated subset); compacted outputs."""
+    rows, prep = device_prep_packed's (rw2, ab2, lens2, lm2): the
+    multi-step path of inexact_pipeline_packed, and the tiered path's
+    tier 2 on a compacted escalated subset; compacted outputs."""
+    rw2, ab2, lens2, lm2 = prep
     B2 = rw2.shape[0]
     nS = k + 1
     sps, eps, offs, fovs = [], [], [], []
@@ -575,12 +588,23 @@ def tiered_pipeline_packed(shard: Shard, read_words, amb_bits, *, L, k, d, d_see
     sel2 // ((k+1) * max_cand), real row esc_sel[row2 % esc_cap], +B for
     the reverse half); ov_rows int32[2B] the combined per-row
     incompleteness count."""
+    return _tiered_packed(
+        shard, device_prep_packed(read_words, amb_bits, L), L=L, k=k, d=d, d_seed=d_seed,
+        max_hits=max_hits, max_cand=max_cand, sa_rate=sa_rate, loc_factor=loc_factor,
+        k2_loc_factor=k2_loc_factor, esc_factor=esc_factor, min_trips=min_trips,
+        cap_scale=cap_scale, wide_steps=wide_steps)
+
+
+def _tiered_packed(shard: Shard, prep, *, L, k, d, d_seed, max_hits, max_cand, sa_rate,
+                   loc_factor, k2_loc_factor, esc_factor, min_trips, cap_scale, wide_steps):
+    """tiered_pipeline_packed on reads already prepped: prep =
+    device_prep_packed's (rw2, ab2, lens2, lm2)."""
     step = shard_occ_step(shard)
     assert step and d >= 1 and d_seed >= 1, (step, d, d_seed)
-    B, W = read_words.shape
-    dev = read_words.device
-    rw2, ab2, lens2, lm2 = device_prep_packed(read_words, amb_bits, L)
-    B2 = 2 * B
+    rw2, ab2, lens2, lm2 = prep
+    B2, W = rw2.shape
+    B = B2 // 2
+    dev = rw2.device
 
     # tier 1: full-read exact candidate pass
     sp, ep, rem, fov = search_early_stop_packed(
@@ -617,7 +641,7 @@ def tiered_pipeline_packed(shard: Shard, read_words, amb_bits, *, L, k, d, d_see
     lm2e = lm2[:1].expand(2 * esc_cap, W)
     lens2e = torch.full((2 * esc_cap,), L, dtype=torch.int32, device=dev)
     cand2, nm2, sel2, cnt2, ov2, co2 = _seed_expand_packed(
-        shard, rw2e, ab2e, lm2e, lens2e, L=L, k=k, d=d_seed, max_loc=max_cand,
+        shard, (rw2e, ab2e, lens2e, lm2e), L=L, k=k, d=d_seed, max_loc=max_cand,
         sa_rate=sa_rate, loc_factor=k2_loc_factor, min_trips=min_trips,
         cap_scale=cap_scale, wide_steps=wide_steps,
     )
@@ -811,8 +835,8 @@ class FusedGraph(NamedTuple):
     """One captured fused program: its static inputs and packed output."""
 
     graph: torch.cuda.CUDAGraph
-    rw: torch.Tensor  # int32[Bp, W] static packed reads
-    ab: torch.Tensor  # int32[Bp, W] static ambiguity bits
+    rw: torch.Tensor  # int32[2Bp, W] static stacked planes: packed reads, then the prep's
+    ab: torch.Tensor  # int32[2Bp, W] the same of the ambiguity bits
     out: torch.Tensor  # int32 packed outputs of every shard
     shapes: list  # per shard, the shapes to split `out` by
     launches: dict  # {kernel name: launches the capture recorded}
@@ -956,27 +980,57 @@ class Engine:
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _run_packed(self, shard: Shard, rw, ab, L: int, k: int, d: int, level: int):
-        """Packed forward reads (on the device) -> one shard's packed
-        pipeline outputs: compacted when the multi-step path runs, else the
-        1-step fallback's dense outputs."""
+    def _upload(self, rw: np.ndarray, ab: np.ndarray, Bp: int):
+        """Packed forward reads into rows [0, Bp) of new int32[2Bp, W]
+        stacked planes on the device (one host-to-device copy a plane),
+        rows past the reads padded with zero words and all-ambiguous bits.
+        Rows [Bp, 2Bp) are left to the prep (_prepped)."""
+        n, W = rw.shape
+        planes = []
+        for a, pad in ((rw, 0), (ab, 0x55555555)):
+            if Bp > n:
+                a = np.concatenate([a, np.full((Bp - n, W), pad, np.int32)])
+            t = torch.empty((2 * Bp, W), dtype=torch.int32, device=self.device)
+            t[:Bp].copy_(torch.from_numpy(np.ascontiguousarray(a)))
+            planes.append(t)
+        return planes
+
+    def _prepped(self, rw2, ab2, L: int, d: int):
+        """What every shard's packed pipeline takes of a batch's stacked
+        planes (_upload): on the multi-step path both strands, prepped here
+        once for all shards (device_prep_packed in place: only rows [Bp,
+        2Bp) are written); on the 1-step fallback the forward rows, which
+        it preps per shard (device_prep_uniform)."""
+        Bp = rw2.shape[0] // 2
+        if self._multistep(d):
+            return device_prep_packed(rw2[:Bp], ab2[:Bp], L, (rw2, ab2))
+        return rw2[:Bp], ab2[:Bp]
+
+    def _run_packed(self, shard: Shard, prepped, L: int, k: int, d: int, level: int):
+        """A batch's _prepped reads -> one shard's packed pipeline outputs:
+        compacted when the multi-step path runs, else the 1-step
+        fallback's dense outputs."""
         mh, mc, lf, _ = self._caps(k, level)
         opts = dict(sa_rate=self.config.sa_rate, loc_factor=lf,
                     min_trips=self.config.min_trips, cap_scale=1 << level,
                     wide_steps=self._wide_steps(d))
+        multistep = self._multistep(d)
         if k == 0:
-            return exact_pipeline_packed(shard, rw, ab, L=L, d=d, max_hits=mh, **opts)
-        return inexact_pipeline_packed(shard, rw, ab, L=L, k=k, d=d, max_loc=mc, **opts)
+            if multistep:
+                return _exact_packed(shard, prepped, L=L, d=d, max_hits=mh, **opts)
+            return exact_pipeline_packed(shard, *prepped, L=L, d=d, max_hits=mh, **opts)
+        if multistep:
+            return _seed_expand_packed(shard, prepped, L=L, k=k, d=d, max_loc=mc, **opts)
+        return inexact_pipeline_packed(shard, *prepped, L=L, k=k, d=d, max_loc=mc, **opts)
 
-    def _run_tiered(self, shard: Shard, rw, ab, L: int, k: int, level: int):
-        """Packed forward reads (on the device) -> one shard's
-        tiered_pipeline_packed outputs: tier 1 at the k = 0 caps, tier 2
-        at this k's caps."""
+    def _run_tiered(self, shard: Shard, prepped, L: int, k: int, level: int):
+        """A block's _prepped reads -> one shard's tiered_pipeline_packed
+        outputs: tier 1 at the k = 0 caps, tier 2 at this k's caps."""
         mh0, _, lf0, _ = self._caps(0, level)
         _, mc, lf, _ = self._caps(k, level)
         d_full = pick_kmer_depth(self.kmer_depths, L)
-        return tiered_pipeline_packed(
-            shard, rw, ab, L=L, k=k, d=d_full,
+        return _tiered_packed(
+            shard, prepped, L=L, k=k, d=d_full,
             d_seed=pick_kmer_depth(self.kmer_depths, L // (k + 1)),
             max_hits=mh0, max_cand=mc, sa_rate=self.config.sa_rate,
             loc_factor=lf0, k2_loc_factor=lf, esc_factor=self.config.esc_factor,
@@ -1005,8 +1059,8 @@ class Engine:
                                    m.reshape(B, L).astype(np.int32),
                                    np.full(B, L, np.int32))
             d = pick_kmer_depth(self.kmer_depths, L if k == 0 else L // (k + 1))
-            rw, ab = self._put(rw), self._put(ab)
-            outs = [self._run_packed(sh, rw, ab, L, k, d, _level) for sh in self.dev_shards]
+            prepped = self._prepped(*self._upload(rw, ab, B), L, d)
+            outs = [self._run_packed(sh, prepped, L, k, d, _level) for sh in self.dev_shards]
             mode = "compact" if self._multistep(d) else "dense"
             return (reads, B, k, outs, time.perf_counter(), mode, _level)
 
@@ -1143,7 +1197,8 @@ class Engine:
         tiered=True at k > 0 (tiered_pipeline_packed; without the
         multi-step lattice the full inexact pipeline runs instead, whose
         results are a superset of the tiered contract). The packed reads
-        go to the device once for all shards (_upload_block); "hits" and
+        go to the device once for all shards (_upload_block), and the
+        multi-step path preps both strands once for all of them; "hits" and
         "tiered" take the fused form with fuse_shards and more than one
         shard. Returns a handle for finish_block."""
         k = self.config.k if k is None else k
@@ -1152,21 +1207,19 @@ class Engine:
 
     def _upload_block(self, block, pad_to: int | None):
         """The block's packed forward reads on the device, padded to pad_to
-        rows: (rw, ab, Bp). The one host sync of a dispatch."""
+        rows, in rows [0, Bp) of its stacked planes (_upload): (rw2, ab2,
+        Bp). The one host sync of a dispatch."""
         from bwtpu_torch.readblock import pack_block
 
         if not (0 < block.L <= self.config.read_len):
             raise ValueError(f"block read length {block.L} not in (0, {self.config.read_len}]")
         rw, ab = pack_block(block)
         Bp = pad_to or block.n
-        if Bp > block.n:
-            W = rw.shape[1]
-            rw = np.concatenate([rw, np.zeros((Bp - block.n, W), np.int32)])
-            ab = np.concatenate([ab, np.full((Bp - block.n, W), 0x55555555, np.int32)])
-        return self._put(rw), self._put(ab), Bp
+        return (*self._upload(rw, ab, Bp), Bp)
 
-    def _dispatch_packed(self, block, rw, ab, Bp: int, k: int, level: int, tiered: bool):
-        """dispatch_block once the reads are on the device."""
+    def _dispatch_packed(self, block, rw2, ab2, Bp: int, k: int, level: int, tiered: bool):
+        """dispatch_block once the reads are in rows [0, Bp) of the stacked
+        planes on the device."""
         L = block.L
         d = pick_kmer_depth(self.kmer_depths, L if k == 0 else L // (k + 1))
         compact_out = self._multistep(d)
@@ -1185,57 +1238,64 @@ class Engine:
                 # plus the heal level, the rows and the wide steps
                 key = (mode, k, d, L, level, self._caps(k, level),
                        self._caps(0, level) if tiered else None, Bp, self._wide_steps(d))
-                outs = self._dispatch_fused(lambda rw, ab: _pack(mode, run(rw, ab)), rw, ab,
-                                            key)
+                outs = self._dispatch_fused(lambda rw2, ab2: _pack(mode, run(rw2, ab2)), rw2,
+                                            ab2, key)
             else:
-                outs = run(rw, ab)
+                outs = run(rw2, ab2)
             return ("block", block, Bp, k, outs, time.perf_counter(), mode, level)
-        outs = [self._run_packed(sh, rw, ab, L, k, d, level) for sh in self.dev_shards]
+        prepped = self._prepped(rw2, ab2, L, d)
+        outs = [self._run_packed(sh, prepped, L, k, d, level) for sh in self.dev_shards]
         mode = "compact" if compact_out else "dense"
         return ("block", block, Bp, k, outs, time.perf_counter(), mode, level)
 
-    def _shard_outputs(self, rw, ab, *, L: int, k: int, d: int, level: int,
+    def _shard_outputs(self, rw2, ab2, *, L: int, k: int, d: int, level: int,
                        mode: str) -> list:
         """Every shard's "hits" (_run_packed + hits_output) or "tiered"
-        (_run_tiered) outputs on packed reads already on the device. The
-        loop form runs this eagerly, the fused form inside one CUDA graph:
-        nothing here syncs with the host."""
+        (_run_tiered) outputs on a block's stacked planes, the reads in rows
+        [0, Bp), prepped here once for every shard. The loop form runs this
+        eagerly, the fused form inside one CUDA graph: nothing here syncs
+        with the host."""
+        prepped = self._prepped(rw2, ab2, L, d)
         if mode == "tiered":
-            return [self._run_tiered(sh, rw, ab, L, k, level) for sh in self.dev_shards]
+            return [self._run_tiered(sh, prepped, L, k, level) for sh in self.dev_shards]
         mh, mc, _, hf = self._caps(k, level)
         Ct = (k + 1) * mc if k else mh
         per_shard = []
         for sh in self.dev_shards:
-            out = self._run_packed(sh, rw, ab, L, k, d, level)
-            hit_cap = min(out[2].shape[0], compact_cap(2 * rw.shape[0], hf, 1 << level))
+            out = self._run_packed(sh, prepped, L, k, d, level)
+            hit_cap = min(out[2].shape[0], compact_cap(rw2.shape[0], hf, 1 << level))
             per_shard.append(hits_output(out, k=k, Ct=Ct, hit_cap=hit_cap))
         return per_shard
 
-    def _dispatch_fused(self, run, rw, ab, key: tuple):
-        """The fused form: `run` (every shard's pipeline, its outputs packed
-        into one int32 buffer: (buffer, shapes)) as ONE program; returns
-        ("fused", buffer, shapes). On the CPU it runs eagerly. On the card
-        the first block of a key runs once eagerly on a side stream (kernel
-        builds, library and allocator set-up), is captured into a CUDA
-        graph, and every block is then one replay. The buffer is copied out of the graph's
-        pool, so a later replay never overwrites a handle still in flight."""
+    def _dispatch_fused(self, run, rw2, ab2, key: tuple):
+        """The fused form: `run` (every shard's pipeline on a block's
+        stacked planes, its outputs packed into one int32 buffer: (buffer,
+        shapes)) as ONE program; returns ("fused", buffer, shapes). On the
+        CPU it runs eagerly. On the card the first block of a key runs once
+        eagerly on a side stream (kernel builds, library and allocator
+        set-up), is captured into a CUDA graph, and every block is then one
+        replay, whose static planes get the block's reads in rows [0, Bp)
+        (the graph's prep writes the rest). The buffer is copied out of the
+        graph's pool, so a later replay never overwrites a handle still in
+        flight."""
         if self.device.type != "cuda":
-            return ("fused", *run(rw, ab))
+            return ("fused", *run(rw2, ab2))
+        Bp = rw2.shape[0] // 2
         with self._graph_lock:
-            g = self._graphs.get(key) or self._capture(key, run, rw, ab)
-            g.rw.copy_(rw)
-            g.ab.copy_(ab)
+            g = self._graphs.get(key) or self._capture(key, run, rw2, ab2)
+            g.rw[:Bp].copy_(rw2[:Bp])
+            g.ab[:Bp].copy_(ab2[:Bp])
             g.graph.replay()
             # the replay's kernels run without their wrappers: no launch
             # counter moves (g.launches is what the capture recorded)
             self.graph_replays[key] += 1
             return ("fused", g.out.clone(), g.shapes)
 
-    def _capture(self, key: tuple, run, rw, ab) -> FusedGraph:
+    def _capture(self, key: tuple, run, rw2, ab2) -> FusedGraph:
         """Warm `run` up on a side stream, then capture it into a CUDA
-        graph on static copies of rw and ab (cached under key)."""
+        graph on static copies of the stacked planes (cached under key)."""
         t0 = time.perf_counter()
-        srw, sab = rw.clone(), ab.clone()
+        srw, sab = rw2.clone(), ab2.clone()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):

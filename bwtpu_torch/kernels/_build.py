@@ -164,9 +164,21 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
             f"{what}: CUDA error {rc} ({lib.bwtpu_cuda_error_name(rc).decode()})")
 
 
-def stream_of(t: torch.Tensor) -> int:
-    """The current CUDA stream of tensor t's device, as a handle."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+def call(fn, t: torch.Tensor, *args) -> int:
+    """fn(*args, stream) with tensor t's device made current, the stream
+    being that device's current stream; returns fn's CUDA error code.
+    Every kernel launch of the port goes through here: a device's default
+    stream has the handle 0, and CUDA sends a launch on handle 0 to the
+    null stream of whichever device is current, so a launch made without
+    the guard for tensors on cuda:1 while cuda:0 is current would run on
+    card 0 with card 1's pointers."""
+    with torch.cuda.device(t.device):
+        return fn(*args, torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def launch(lib: ctypes.CDLL, fn, what: str, t: torch.Tensor, *args) -> None:
+    """`call`, then raise if the entry point returned a CUDA error."""
+    check(lib, call(fn, t, *args), what)
 
 
 def on_cuda(kernel: str, t: torch.Tensor) -> bool:

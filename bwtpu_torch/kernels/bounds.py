@@ -147,10 +147,15 @@ def compact_mask_work(args):
 
 
 def revcomp_both_work(args):
-    """(bytes, ops, what) of a revcomp_both call (words, amb, L): both
-    int32[B, W] planes read once, both int32[2B, W] planes and lens2
-    written; 20 operations a reverse-complement word (NOT, bit reverse,
-    field swap, funnel shift) of each plane."""
-    words, _, L = args
+    """(bytes, ops, what) of a revcomp_both call (words, amb, L[, out]):
+    both int32[B, W] planes read once, the reverse half of both int32[2B,
+    W] planes and lens2 written (16 B a word, 8 a read), and the forward
+    half too unless words and amb are its rows [0, B) (the in-place call:
+    24 B a word then); 20 operations a reverse-complement word (NOT, bit
+    reverse, field swap, funnel shift) of each plane."""
+    words, amb, L = args[:3]
+    out = args[3] if len(args) > 3 else None
     B, W = words.shape
-    return 24 * B * W + 8 * B, 40 * B * W, f"{B} reads x L {L} (W {W})"
+    forward = out is None or prep._planes(words, amb, L, out)[2]
+    return ((24 if forward else 16) * B * W + 8 * B, 40 * B * W,
+            f"{B} reads x L {L} (W {W}), {'forward' if forward else 'in place'}")

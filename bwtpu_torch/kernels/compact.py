@@ -129,14 +129,12 @@ def _launch(kernel: str, x: torch.Tensor, H: int, capacity: int):
     form, words = plan(n, capacity, _cluster_ctas(lib, x.device), lib.tile)
     ws = torch.empty(words, dtype=torch.int32, device=x.device)
     flag = torch.empty(n, dtype=torch.bool, device=x.device)
-    stream = _build.stream_of(x)
     if kernel == "compact_mask":
-        rc = lib.bwtpu_compact_mask(x.data_ptr(), n, capacity, form, ws.data_ptr(), words,
-                                    flag.data_ptr(), stream)
+        _build.launch(lib, lib.bwtpu_compact_mask, kernel, x, x.data_ptr(), n, capacity, form,
+                      ws.data_ptr(), words, flag.data_ptr())
     else:
-        rc = lib.bwtpu_compact_slots(x.data_ptr(), n, H, capacity, form, ws.data_ptr(), words,
-                                     flag.data_ptr(), stream)
-    _build.check(lib, rc, kernel)
+        _build.launch(lib, lib.bwtpu_compact_slots, kernel, x, x.data_ptr(), n, H, capacity,
+                      form, ws.data_ptr(), words, flag.data_ptr())
     sel, scalars, _ = ws.split((capacity, 2, words - capacity - 2))
     count, overflow = scalars.unbind()
     return sel, count, overflow, flag

@@ -56,10 +56,9 @@ def row_gather_sum(table, idx, G: int = 1024, inflight: int = 8):
     if n_blocks == 0 or Wr == 0:
         return out
     lib = _lib()
-    rc = lib.bwtpu_row_gather_sum(table.data_ptr(), Wr, vec, idx.data_ptr(),
-                                  n_blocks, G, inflight, out.data_ptr(),
-                                  _build.stream_of(table))
-    _build.check(lib, rc, "row_gather_sum")
+    _build.launch(lib, lib.bwtpu_row_gather_sum, "row_gather_sum", table,
+                  table.data_ptr(), Wr, vec, idx.data_ptr(), n_blocks, G, inflight,
+                  out.data_ptr())
     _build.count_launch(row_gather_sum)
     return out
 

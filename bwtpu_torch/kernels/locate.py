@@ -91,12 +91,10 @@ def locate_walk(lattice, ssa, C, dollar_row: int, rows, sel, count, sa_rate: int
         raise ValueError("locate_walk: lattice must be 16-byte aligned")
     pos = torch.empty_like(sel)
     lib = _lib()
-    rc = lib.bwtpu_locate_walk(
-        lattice.data_ptr(), ssa.data_ptr(), C.data_ptr(), rows.data_ptr(),
-        sel.data_ptr(), count.data_ptr(), sel.shape[0], sa_rate, int(dollar_row),
-        pos.data_ptr(), _build.stream_of(rows),
-    )
-    _build.check(lib, rc, "locate_walk")
+    _build.launch(lib, lib.bwtpu_locate_walk, "locate_walk", rows,
+                  lattice.data_ptr(), ssa.data_ptr(), C.data_ptr(), rows.data_ptr(),
+                  sel.data_ptr(), count.data_ptr(), sel.shape[0], sa_rate, int(dollar_row),
+                  pos.data_ptr())
     _build.count_launch(locate_walk)
     return pos
 

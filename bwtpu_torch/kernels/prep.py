@@ -46,31 +46,80 @@ def revcomp_packed_plain(words: torch.Tensor, amb: torch.Tensor, L: int):
     return i32(_funnel_right(ru, S)), i32(_funnel_right(ra, S))
 
 
-def revcomp_both_plain(words: torch.Tensor, amb: torch.Tensor, L: int):
-    """Plain version of `revcomp_both`."""
-    rc_w, rc_a = revcomp_packed_plain(words, amb, L)
-    lens2 = torch.full((2 * words.shape[0],), L, dtype=torch.int32, device=words.device)
-    return torch.cat([words, rc_w]), torch.cat([amb, rc_a]), lens2
-
-
-def revcomp_both(words: torch.Tensor, amb: torch.Tensor, L: int):
-    """Both strands of uniform length-L packed reads (int32[B, W] words and
-    ambiguity bits, W = ceil(L / 16)): (rw2, ab2) int32[2B, W], the rows
-    as they are and then their packed reverse complements (slots >= L
-    zero), and lens2 int32[2B] = L. The kernel revcomp_both on CUDA
-    tensors, `revcomp_both_plain` on CPU tensors, else an error; the two
-    are equal on every output."""
-    if not _build.on_cuda("revcomp_both", words):
-        return revcomp_both_plain(words, amb, L)
-    dev = words.device
-    _build.check_tensor("revcomp_both", "words", words, torch.int32, 2, dev)
-    _build.check_tensor("revcomp_both", "amb", amb, torch.int32, 2, dev)
+def _planes(words: torch.Tensor, amb: torch.Tensor, L: int, out):
+    """(rw2, ab2, forward) of a `revcomp_both` call: the output planes
+    (`out`, else new ones) and whether their forward half is to be written
+    (False when words and amb are their rows [0, B), as the engine's
+    upload leaves them). Raises on shapes the call does not take, and on
+    any other overlap of the inputs and the outputs."""
     B, W = words.shape
     if amb.shape != (B, W) or not 16 * (W - 1) < L <= 16 * W:
         raise ValueError(f"revcomp_both: words {tuple(words.shape)} and amb "
                          f"{tuple(amb.shape)} must be [B, ceil(L / 16)] for L = {L}")
-    rw2 = torch.empty((2 * B, W), dtype=torch.int32, device=dev)
-    ab2 = torch.empty((2 * B, W), dtype=torch.int32, device=dev)
+    if out is None:
+        return (torch.empty((2 * B, W), dtype=words.dtype, device=words.device),
+                torch.empty((2 * B, W), dtype=amb.dtype, device=amb.device), True)
+    rw2, ab2 = out
+    for name, t in (("rw2", rw2), ("ab2", ab2)):
+        if (t.shape != (2 * B, W) or t.dtype != words.dtype or t.device != words.device
+                or not t.is_contiguous()):
+            raise ValueError(f"revcomp_both: {name} must be a contiguous {words.dtype} "
+                             f"[{2 * B}, {W}] tensor on {words.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if B == 0:
+        return rw2, ab2, True
+    in_place = (words.data_ptr() == rw2.data_ptr() and amb.data_ptr() == ab2.data_ptr()
+                and words.is_contiguous() and amb.is_contiguous())
+    pairs = [(rw2, ab2)] + ([] if in_place else
+                            [(words, rw2), (words, ab2), (amb, rw2), (amb, ab2)])
+    if any(_overlap(a, b) for a, b in pairs):
+        raise ValueError("revcomp_both: the inputs overlap the outputs other than as "
+                         "their rows [0, B)")
+    return rw2, ab2, not in_place
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the memory spans of two tensors intersect."""
+    def span(t):
+        if t.numel() == 0:
+            return 0, 0
+        n = 1 + sum((d - 1) * st for d, st in zip(t.shape, t.stride()))
+        return t.data_ptr(), t.data_ptr() + n * t.element_size()
+
+    (a0, a1), (b0, b1) = span(a), span(b)
+    return a0 < b1 and b0 < a1
+
+
+def revcomp_both_plain(words: torch.Tensor, amb: torch.Tensor, L: int, out=None):
+    """Plain version of `revcomp_both`."""
+    rw2, ab2, forward = _planes(words, amb, L, out)
+    B = words.shape[0]
+    rc_w, rc_a = revcomp_packed_plain(words, amb, L)
+    if forward:
+        rw2[:B] = words
+        ab2[:B] = amb
+    rw2[B:] = rc_w
+    ab2[B:] = rc_a
+    return rw2, ab2, torch.full((2 * B,), L, dtype=torch.int32, device=words.device)
+
+
+def revcomp_both(words: torch.Tensor, amb: torch.Tensor, L: int, out=None):
+    """Both strands of uniform length-L packed reads (int32[B, W] words and
+    ambiguity bits, W = ceil(L / 16)): (rw2, ab2) int32[2B, W], the rows
+    as they are and then their packed reverse complements (slots >= L
+    zero), and lens2 int32[2B] = L. `out` = (rw2, ab2) writes into given
+    planes; where words and amb are their rows [0, B) (the engine's
+    upload) only the reverse half is written, in place. The kernel
+    revcomp_both on CUDA tensors (its instance without the forward copy
+    for that call), `revcomp_both_plain` on CPU tensors, else an error;
+    the two are equal on every output."""
+    if not _build.on_cuda("revcomp_both", words):
+        return revcomp_both_plain(words, amb, L, out)
+    dev = words.device
+    _build.check_tensor("revcomp_both", "words", words, torch.int32, 2, dev)
+    _build.check_tensor("revcomp_both", "amb", amb, torch.int32, 2, dev)
+    rw2, ab2, forward = _planes(words, amb, L, out)
+    B, W = words.shape
     lens2 = torch.empty(2 * B, dtype=torch.int32, device=dev)
     if B == 0:
         return rw2, ab2, lens2
@@ -79,10 +128,9 @@ def revcomp_both(words: torch.Tensor, amb: torch.Tensor, L: int):
     if f.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         f.restype = i
-        f.argtypes = [p, p, i, i, i, p, p, p, p]
-    rc = f(words.data_ptr(), amb.data_ptr(), B, W, L, rw2.data_ptr(), ab2.data_ptr(),
-           lens2.data_ptr(), _build.stream_of(words))
-    _build.check(lib, rc, "revcomp_both")
+        f.argtypes = [p, p, i, i, i, p, p, p, i, p]
+    _build.launch(lib, f, "revcomp_both", words, words.data_ptr(), amb.data_ptr(), B, W, L,
+                  rw2.data_ptr(), ab2.data_ptr(), lens2.data_ptr(), int(forward))
     _build.count_launch(revcomp_both)
     return rw2, ab2, lens2
 

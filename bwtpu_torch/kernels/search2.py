@@ -133,10 +133,10 @@ def search_chain1(lattice, C, dollar_row: int, ra_codes, ra_amb, lens, sp0, ep0,
         p, i = ctypes.c_void_p, ctypes.c_int
         f.restype = i
         f.argtypes = [p, p, i, p, p, p, p, p, i, i, i, p, p, p, p]
-    rc = f(lattice.data_ptr(), C.data_ptr(), int(dollar_row), ra_codes.data_ptr(),
-           ra_amb.data_ptr(), lens.data_ptr(), sp0.data_ptr(), ep0.data_ptr(), B, L, d,
-           sp.data_ptr(), ep.data_ptr(), strag.data_ptr(), _build.stream_of(sp0))
-    _build.check(lib, rc, "search_chain1")
+    _build.launch(lib, f, "search_chain1", sp0,
+                  lattice.data_ptr(), C.data_ptr(), int(dollar_row), ra_codes.data_ptr(),
+                  ra_amb.data_ptr(), lens.data_ptr(), sp0.data_ptr(), ep0.data_ptr(), B, L, d,
+                  sp.data_ptr(), ep.data_ptr(), strag.data_ptr())
     _build.count_launch(search_chain1)
     return sp, ep, strag
 
@@ -228,10 +228,10 @@ def search_chain2(lattice, C, dollar_row: int, pattern, sp0, ep0, sel, count, sp
             raise ValueError("search_chain2: planes and d disagree")
         ptrs = (pattern.codes.data_ptr(), pattern.amb.data_ptr(), pattern.lens.data_ptr(), L)
     lib, f = _chain2_entry(packed)
-    rc = f(lattice.data_ptr(), C.data_ptr(), int(dollar_row), *ptrs, sp0.data_ptr(),
-           ep0.data_ptr(), sel.data_ptr(), count.data_ptr(), sel.shape[0], d,
-           sp.data_ptr(), ep.data_ptr(), _build.stream_of(sp))
-    _build.check(lib, rc, "search_chain2")
+    _build.launch(lib, f, "search_chain2", sp,
+                  lattice.data_ptr(), C.data_ptr(), int(dollar_row), *ptrs, sp0.data_ptr(),
+                  ep0.data_ptr(), sel.data_ptr(), count.data_ptr(), sel.shape[0], d,
+                  sp.data_ptr(), ep.data_ptr())
     _build.count_launch(search_chain2)
 
 

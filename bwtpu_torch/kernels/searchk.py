@@ -225,12 +225,12 @@ def search_multistep(lattice, latk, latk_inv, C, dollar_row: int, kmer_table, wo
     out = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(7)]
     sp0, ep0, sp, ep, rem, leave, over_lane = out
     unfinished = torch.empty(B, dtype=torch.bool, device=dev)
-    rc = f(lattice.data_ptr(), latk.data_ptr(), latk_inv.data_ptr(), C.data_ptr(),
-           int(dollar_row), kmer_table.data_ptr(), words.data_ptr(), amb_bits.data_ptr(),
-           B, W, off, L, d, step, stop_width, min_trips, wide_steps, T, cap,
-           *(t.data_ptr() for t in out[:6]), unfinished.data_ptr(), over_lane.data_ptr(),
-           ws.data_ptr(), ws.numel(), _build.stream_of(words))
-    _build.check(lib, rc, "search_multistep")
+    _build.launch(lib, f, "search_multistep", words,
+                  lattice.data_ptr(), latk.data_ptr(), latk_inv.data_ptr(), C.data_ptr(),
+                  int(dollar_row), kmer_table.data_ptr(), words.data_ptr(), amb_bits.data_ptr(),
+                  B, W, off, L, d, step, stop_width, min_trips, wide_steps, T, cap,
+                  *(t.data_ptr() for t in out[:6]), unfinished.data_ptr(),
+                  over_lane.data_ptr(), ws.data_ptr(), ws.numel())
     _build.count_launch(search_multistep)
     return (sp0, ep0, sp, ep, rem, unfinished, ws[T + 1], ws[T + 5 + nb:], ws[T + 2],
             over_lane, ws[T + 3])

@@ -233,12 +233,11 @@ def verify_nm(text_rows, text_len: int, spos, sel, count, seed_off, read_words, 
     vec_rows = text_rows.shape[1] % 4 == 0 and text_rows.data_ptr() % 16 == 0
     cand, nm = torch.empty_like(spos), torch.empty_like(spos)
     planes = [x for t in (read_words, amb_bits, len_mask) for x in (t.data_ptr(), t.stride(0))]
-    rc = lib.bwtpu_verify_nm(
-        text_rows.data_ptr(), text_rows.shape[1], int(text_len), spos.data_ptr(),
-        sel.data_ptr(), count.data_ptr(), seed_off.data_ptr(), *planes, lens.data_ptr(), W,
-        int(max_loc), int(n_slots), cap, int(vec_rows), cand.data_ptr(), nm.data_ptr(),
-        _build.stream_of(spos))
-    _build.check(lib, rc, "verify_nm")
+    _build.launch(lib, lib.bwtpu_verify_nm, "verify_nm", spos,
+                  text_rows.data_ptr(), text_rows.shape[1], int(text_len), spos.data_ptr(),
+                  sel.data_ptr(), count.data_ptr(), seed_off.data_ptr(), *planes,
+                  lens.data_ptr(), W, int(max_loc), int(n_slots), cap, int(vec_rows),
+                  cand.data_ptr(), nm.data_ptr())
     _build.count_launch(verify_nm)
     return cand, nm
 
@@ -280,13 +279,11 @@ def verify_locv(locv, text_len: int, rows, valid, off, read_words, amb_bits,
                          f"reads of {W} words need {2 * W + 2}")
     pos, nm = torch.empty_like(rows), torch.empty_like(rows)
     lib = _lib()
-    rc = lib.bwtpu_verify_locv(
-        locv.data_ptr(), int(text_len), rows.data_ptr(),
-        valid.data_ptr(), off.data_ptr(), read_words.data_ptr(),
-        amb_bits.data_ptr(), len_mask.data_ptr(), lens.data_ptr(), Cc, W,
-        pos.data_ptr(), nm.data_ptr(), _build.stream_of(rows),
-    )
-    _build.check(lib, rc, "verify_locv")
+    _build.launch(lib, lib.bwtpu_verify_locv, "verify_locv", rows,
+                  locv.data_ptr(), int(text_len), rows.data_ptr(),
+                  valid.data_ptr(), off.data_ptr(), read_words.data_ptr(),
+                  amb_bits.data_ptr(), len_mask.data_ptr(), lens.data_ptr(), Cc, W,
+                  pos.data_ptr(), nm.data_ptr())
     _build.count_launch(verify_locv)
     return pos, nm
 

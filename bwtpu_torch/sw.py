@@ -95,11 +95,10 @@ def sw_score_batch(text, text_lens, reads, read_lens, band: int = 8, match: int 
         raise ValueError(f"sw_band: band {band} has no kernel instance (0.."
                          f"{lib.bwtpu_sw_max_band()})")
     out = torch.empty(B, dtype=torch.int32, device=dev)
-    rc = lib.bwtpu_sw_band(text.data_ptr(), text.shape[1], text_lens.data_ptr(),
-                           reads.data_ptr(), L, read_lens.data_ptr(), B, int(band),
-                           int(match), int(mismatch), int(gap), out.data_ptr(),
-                           _build.stream_of(reads))
-    _build.check(lib, rc, "sw_band")
+    _build.launch(lib, lib.bwtpu_sw_band, "sw_band", reads,
+                  text.data_ptr(), text.shape[1], text_lens.data_ptr(),
+                  reads.data_ptr(), L, read_lens.data_ptr(), B, int(band),
+                  int(match), int(mismatch), int(gap), out.data_ptr())
     _build.count_launch(sw_score_batch)
     return out
 

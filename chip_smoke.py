@@ -15,7 +15,10 @@ Phases, in order; any failure raises and the exit code is not 0:
      launches between one event pair, divided by 50) and its bound:
      search_multistep, search_chain2, locate_walk, verify_nm, revcomp_both,
      compact_slots and compact_mask on the very arguments one block of
-     phase 5's reads hands them (k = 0 and k = 2; compact_mask's library
+     phase 5's reads hands them (k = 0 and k = 2; revcomp_both's in-place
+     call as the engine makes it, then its forward instance on the same
+     reads and both instances on a floor call of 256 reads;
+     compact_mask's library
      call torch.nonzero_static timed beside it; both compactions also on
      their empty call, and on phase 5's k = 2 call tiled to both sides of
      the edge between their two forms, with the cluster size compact.cu
@@ -79,8 +82,9 @@ Phases, in order; any failure raises and the exit code is not 0:
      k = 0 and 2: pair truth, the paired Read-list loop byte-equal to the
      columnar path, brute force on 256 sampled mate-1 reads against a
      single-end pass, no truncated read, search_multistep, locate_walk,
-     verify_nm, search_chain2, revcomp_both, compact_slots and
-     compact_mask launched at least once per shard and block; then a
+     verify_nm, search_chain2, compact_slots and compact_mask launched at
+     least once per shard and block, revcomp_both exactly once a
+     dispatched block (the block's prep serves both shards); then a
      single-shard `build-index --kmer-d 11` of the same genome (its s-mer
      lattice larger than L2) and one block of 16,384 mate-1 reads through
      Engine.dispatch_block + finish_block at k = 0 and 2: every
@@ -98,7 +102,9 @@ Phases, in order; any failure raises and the exit code is not 0:
      counted from the trace's kernel names and equal to what each
      replayed graph's capture recorded (a replay calls no wrapper, so
      these measured counts are the path's launches), revcomp_both,
-     compact_slots and compact_mask among them; a window of one
+     compact_slots and compact_mask among them, revcomp_both exactly once
+     a replayed block (and once a block in the loop form's runs); a
+     window of one
      replayed dispatch_block with one graph launch and no kernel launch;
      the dispatch and finish walls and each graph's warm-up and capture
      printed, not gated;
@@ -454,16 +460,36 @@ def sw_sass(band: int) -> dict:
     return {"row_loop_sass": size, "row_loop_dpx": dpx}
 
 
+def clone_args(args) -> tuple:
+    """Clones of a call's positional arguments (tensors, and tuples of
+    them). The in-place prep call (words and amb that are rows [0, B) of
+    the `out` planes, as Engine makes it) is cloned as such a call."""
+    import torch
+
+    def clone(a):
+        if isinstance(a, torch.Tensor):
+            return a.clone()
+        if isinstance(a, tuple) and a and all(isinstance(t, torch.Tensor) for t in a):
+            return tuple(t.clone() for t in a)
+        return a
+
+    out = [clone(a) for a in args]
+    if (len(args) == 4 and isinstance(out[3], tuple)
+            and args[0].data_ptr() == args[3][0].data_ptr()):
+        B = args[0].shape[0]
+        out[0], out[1] = out[3][0][:B], out[3][1][:B]
+    return tuple(out)
+
+
 @contextlib.contextmanager
 def capturing(owner, name: str, calls: list):
     """Record a copy of the positional arguments of every call of
-    owner.name while the block runs (the call itself goes through)."""
-    import torch
-
+    owner.name while the block runs (the call itself goes through;
+    clone_args)."""
     orig = getattr(owner, name)
 
     def rec(*args):
-        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        calls.append(clone_args(args))
         return orig(*args)
 
     rec.launches = 0  # the wrapper counts its launch on the name it is called by
@@ -612,6 +638,7 @@ def main_path_kernels(idx, block_reads):
     ms["k2_floor"] = multistep_floor(calls[2]["search_multistep"][0], "k=2 seed 0")
     multistep_edges(idx, calls[0]["search_multistep"][0])
     multistep_no_sync(idx, calls[0]["search_multistep"][0], blk)
+    records["revcomp_both"].update(revcomp_instances(calls[0]["revcomp_both"][0]))
     records["compact_mask"].update(nonzero_static_ms(*calls[0]["compact_mask"][0]))
     for name in ("compact_slots", "compact_mask"):
         records[name].update(compaction_edges(name, calls[0][name][0], calls[2][name][0]))
@@ -619,6 +646,47 @@ def main_path_kernels(idx, block_reads):
     for k in (0, 2):
         no_plain_compaction(engine.Engine([idx], device="cuda"), blk, k)
     return records
+
+
+PREP_FLOOR = 256  # reads of the floor call: the launch and one round trip to memory
+
+
+def revcomp_instances(args) -> dict:
+    """revcomp_both's two instances on the main path's reads (the in-place
+    call `args`, which the engine makes and phase 3 timed): the forward one
+    (the same reads as rows of their own, both halves written) held
+    against the plain version, timed and bounded; then the floor, a call
+    of PREP_FLOOR reads, of each instance."""
+    import torch
+
+    from bwtpu_torch.kernels import prep
+    from bwtpu_torch.kernels.bounds import bound, cuda_ms, revcomp_both_work
+
+    words, amb, L = args[0].clone(), args[1].clone(), args[2]
+    B, W = PREP_FLOOR, words.shape[1]
+    planes = tuple(torch.empty((2 * B, W), dtype=torch.int32, device=words.device)
+                   for _ in range(2))
+    planes[0][:B] = words[:B]
+    planes[1][:B] = amb[:B]
+    calls = {"forward": (words, amb, L),
+             "floor_in_place": (planes[0][:B], planes[1][:B], L, planes),
+             "floor_forward": (words[:B].clone(), amb[:B].clone(), L)}
+    rec = {}
+    for label, call in calls.items():
+        got = prep.revcomp_both(*fresh_args("revcomp_both", call))
+        want = prep.revcomp_both_plain(*fresh_args("revcomp_both", call))
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, want, strict=True)),
+                f"revcomp_both {label} != plain")
+        targs = fresh_args("revcomp_both", call)
+        runs = sorted(cuda_ms(lambda: prep.revcomp_both(*targs)) for _ in range(RUNS))
+        nbytes, ops, what = revcomp_both_work(call)
+        b = bound(nbytes, ops)
+        rec[f"{label}_ms"], rec[f"{label}_bound_ms"] = runs[RUNS // 2], b["bound_ms"]
+        say(f"  revcomp_both {label} ({what}): equal; kernel {runs[RUNS // 2]:.4f} ms (runs "
+            f"{runs[0]:.4f}-{runs[-1]:.4f}); bound {b['bound_ms']:.5f} ms ({b['bound_by']}: "
+            f"{b['bound_bytes']} B)")
+    return rec
 
 
 def compaction_kernels(name: str):
@@ -1009,7 +1077,10 @@ RUNS = 3  # timings of each main-path call (the spread)
 
 
 def fresh_args(name: str, args):
-    """search_chain2 writes into its sp and ep: give it clones of them."""
+    """search_chain2 writes into its sp and ep, the in-place revcomp_both
+    into its planes: give them clones."""
+    if name == "revcomp_both":
+        return clone_args(args)
     if name != "search_chain2":
         return args
     return (*args[:8], args[8].clone(), args[9].clone(), args[10])
@@ -1812,8 +1883,10 @@ def phase_paired(tmp: str):
     columnar path, then the paired Read-list loop (`--rescore --paired`)
     byte-equal to it; pair truth; brute force on 256 sampled mate-1 reads
     against a single-end engine pass; no truncated read; search_multistep,
-    locate_walk, verify_nm, search_chain2 and the PACKED kernels launched
-    at least once per shard and block. Returns the launches of the
+    locate_walk, verify_nm, search_chain2, compact_slots and compact_mask
+    launched at least once per shard and block, revcomp_both exactly once
+    a dispatched block (the prep serves both shards; heals dispatch
+    again). Returns the launches of the
     columnar runs, the build's seconds and the index directory and the
     two FASTQs (phase 12 reuses them)."""
     import numpy as np
@@ -1879,8 +1952,11 @@ def phase_paired(tmp: str):
         for route, extra in (("columnar", []), ("Read-list", ["--rescore"])):
             sam = os.path.join(tmp, f"paired_k{k}_{route}.sam")
             reset_launches()
-            summary = run_cli(["align", idx_dir, fq1, "--paired", fq2, "-o", sam, "-k", str(k),
-                               "--batch-size", str(BATCH), "--device", "cuda", *extra])
+            dispatched: list = []
+            with counting_dispatches(dispatched):
+                summary = run_cli(["align", idx_dir, fq1, "--paired", fq2, "-o", sam, "-k",
+                                   str(k), "--batch-size", str(BATCH), "--device", "cuda",
+                                   *extra])
             launches = read_launches()
             with open(sam, "rb") as f:
                 out[route] = f.read()
@@ -1889,10 +1965,14 @@ def phase_paired(tmp: str):
             if route == "columnar":
                 stats[k] = launches
                 per = {n: launches[n] / (2 * n_blocks) for n in
-                       ("search_multistep", "locate_walk", "verify_nm", "search_chain2")
-                       + PACKED}
+                       ("search_multistep", "locate_walk", "verify_nm", "search_chain2",
+                        "compact_slots", "compact_mask")}
                 require(all(v >= 1 for v in per.values()),
                         f"paired k={k}: launches per shard and block {per}")
+                require(len(dispatched) >= n_blocks
+                        and launches["revcomp_both"] == len(dispatched),
+                        f"paired k={k}: revcomp_both launched {launches['revcomp_both']} times "
+                        f"for {len(dispatched)} dispatched blocks of 2 shards (once a block)")
                 rate = summary["reads_per_s"], summary["wall_s"]
         require(out["Read-list"] == out["columnar"],
                 f"paired k={k}: the Read-list loop's SAM differs from the columnar path's")
@@ -1913,6 +1993,25 @@ def phase_paired(tmp: str):
     wide = multistep_wide(tmp, fa, mates1[:BATCH], pos1[:BATCH], nm1[:BATCH])
     return ({n: sum(st[n] for st in stats.values()) for n in stats[0]}, build_s,
             (idx_dir, fq1, fq2), wide)
+
+
+@contextlib.contextmanager
+def counting_dispatches(dispatched: list):
+    """Append to `dispatched` for every block Engine dispatches while the
+    block runs (Engine._dispatch_packed: a heal dispatches again)."""
+    from bwtpu_torch.engine import Engine
+
+    orig = Engine._dispatch_packed
+
+    def counted(self, *args):
+        dispatched.append(args[0].n)
+        return orig(self, *args)
+
+    Engine._dispatch_packed = counted
+    try:
+        yield
+    finally:
+        Engine._dispatch_packed = orig
 
 
 def multistep_wide(tmp: str, fa: str, mates1, pos1, nm1) -> dict:
@@ -1989,11 +2088,11 @@ def fused_no_sync(eng, blk, k: int, tiered: bool) -> None:
     import torch
 
     want = fused_run(eng, [blk], k, tiered)[0]
-    rw, ab, Bp = eng._upload_block(blk, BATCH)
+    rw2, ab2, Bp = eng._upload_block(blk, BATCH)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        handle = eng._dispatch_packed(blk, rw, ab, Bp, k, 0, tiered)
+        handle = eng._dispatch_packed(blk, rw2, ab2, Bp, k, 0, tiered)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     f = eng.finish_block(handle)
@@ -2093,8 +2192,14 @@ def phase_fused(p10) -> dict:
         for fuse in (False, True, True, False):
             reset_launches()
             runs.append((fuse, *fused_run(engines[fuse], blks, k, tiered)))
+            ran = read_launches()
             if fuse:
-                launches = {n: launches[n] + c for n, c in read_launches().items()}
+                launches = {n: launches[n] + c for n, c in ran.items()}
+            else:  # the loop preps once a block for both shards, heals included
+                blocks = len(blks) + runs[-1][2]["heals"]
+                require(ran["revcomp_both"] == blocks,
+                        f"k={k} tiered={tiered}: the loop launched revcomp_both "
+                        f"{ran['revcomp_both']} times for {blocks} blocks")
         want = runs[0][1:3]
         require(all(r[1:3] == want for r in runs),
                 f"k={k} tiered={tiered}: the fused form differs from the loop form")
@@ -2109,6 +2214,10 @@ def phase_fused(p10) -> dict:
         require(res[:2] == want, f"k={k} tiered={tiered}: the traced fused run differs")
         require(all(measured[n] > 0 for n in PACKED),
                 f"k={k} tiered={tiered}: the replays ran no {PACKED}: {measured}")
+        replays = res[1]["heals"] + len(blks)
+        require(measured["revcomp_both"] == replays,
+                f"k={k} tiered={tiered}: the replays ran revcomp_both "
+                f"{measured['revcomp_both']} times for {replays} replayed blocks (once a block)")
         launches = {n: launches[n] + c for n, c in measured.items()}
         say(f"  traced fused run: {graph} graph launches, {kernel} kernel launches, {device} "
             f"device events; launches measured by kernel name, equal to the captures' "

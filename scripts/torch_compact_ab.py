@@ -109,14 +109,12 @@ class Variant:
         ws = torch.empty(words, dtype=torch.int32, device=x.device)
         flag = torch.empty(n, dtype=torch.bool, device=x.device)
         arg = () if form is None else (form,)
-        stream = _build.stream_of(x)
         if kind == "compact_mask":
-            rc = self.lib.bwtpu_compact_mask(x.data_ptr(), n, cap, *arg, ws.data_ptr(), words,
-                                             flag.data_ptr(), stream)
+            _build.launch(self.lib, self.lib.bwtpu_compact_mask, self.name, x, x.data_ptr(), n,
+                          cap, *arg, ws.data_ptr(), words, flag.data_ptr())
         else:
-            rc = self.lib.bwtpu_compact_slots(x.data_ptr(), n, H, cap, *arg, ws.data_ptr(),
-                                              words, flag.data_ptr(), stream)
-        _build.check(self.lib, rc, self.name)
+            _build.launch(self.lib, self.lib.bwtpu_compact_slots, self.name, x, x.data_ptr(),
+                          n, H, cap, *arg, ws.data_ptr(), words, flag.data_ptr())
         return ws[:cap], ws[cap], ws[cap + 1], flag
 
 

@@ -22,7 +22,9 @@ card's name and power limit, peak device memory, the depth kept and its
 wide steps, search_multistep calls with and without a wide phase, one
 such call's device ms against its bound, kernel launches, for each rate
 one more pass of its 2 blocks under torch.profiler: wall, device busy
-time and share, the kernels that took most, and per block of the timed
+time and share, the kernels that took most, each kernel's launches and
+device µs counted by kernel name (the fused form's replays included),
+and per block of the timed
 passes the dispatch_block wall split into packing the reads, their upload
 (the wait for the card included) and the rest (issue), and the
 finish_block wall split into the fetch (its device-to-host copies, the
@@ -371,6 +373,9 @@ def card_half(args, shards, manifest, load_s: float) -> None:
         return ReadBlock(n=B, L=100, id_blob=np.frombuffer(b"".join(id_strs), np.uint8),
                          id_off=off, seq=seq, qual=np.full((B, 100), ord("I"), np.uint8))
 
+    # the host-to-device copies of a block (an earlier tree's Engine: _put)
+    upload = "_upload" if hasattr(Engine, "_upload") else "_put"
+
     def measure(k, B, tiered=False):
         encs = [simulate_reads_fast(B, i) for i in range(2)]
         # warm at the ceiling, then size the caps to measured occupancy
@@ -386,7 +391,7 @@ def card_half(args, shards, manifest, load_s: float) -> None:
             for e in encs:
                 t1 = time.perf_counter()
                 with timing_calls(walls, "pack", [(readblock, "pack_block")]), \
-                        timing_calls(walls, "upload", [(Engine, "_put")]):
+                        timing_calls(walls, "upload", [(Engine, upload)]):
                     hs.append(eng.dispatch_block(e, k, pad_to=B, tiered=tiered))
                 walls["dispatch"] += time.perf_counter() - t1
             for h in hs:
@@ -440,11 +445,18 @@ def card_half(args, shards, manifest, load_s: float) -> None:
                 busy_us += b - max(a, end)
                 end = b
         by_name = collections.Counter()
+        kernels: dict = {}
         for e in dev:
             by_name[e.name] += e.time_range.elapsed_us()
+            for n, c in _build.launches_in_trace([e.name]).items():
+                if c:
+                    r = kernels.setdefault(n, {"launches": 0, "us": 0.0})
+                    r["launches"] += 1
+                    r["us"] += e.time_range.elapsed_us()
         return {"wall_ms": wall * 1e3, "device_events": len(dev), "busy_ms": busy_us / 1e3,
                 "busy_share": busy_us / 1e6 / wall,
-                "top_ms": {n: us / 1e3 for n, us in by_name.most_common(4)}}
+                "top_ms": {n: us / 1e3 for n, us in by_name.most_common(4)},
+                "kernels": kernels}
 
     counts = {"calls": 0, "wide_calls": 0}
     wide_call: list = []

@@ -141,17 +141,18 @@ class Source:
             nb = max(1, -(-B // self.tile))
             ws = torch.empty(T + 5 + nb + cap, dtype=torch.int32, device=dev)
             over = torch.empty(B, dtype=torch.int32, device=dev)
-            rc = self.f(*head, *(t.data_ptr() for t in out), unf.data_ptr(), over.data_ptr(),
-                        ws.data_ptr(), ws.numel(), _build.stream_of(words))
+            _build.launch(self.lib, self.f, self.name, words, *head,
+                          *(t.data_ptr() for t in out), unf.data_ptr(), over.data_ptr(),
+                          ws.data_ptr(), ws.numel())
             extra = (ws[T + 5 + nb:], ws[T + 2], over, ws[T + 3])
             trips = ws[T + 1]
         else:
             hist = torch.zeros(T + 1, dtype=torch.int32, device=dev)
             trips = torch.empty((), dtype=torch.int32, device=dev)
-            rc = self.f(*head, *(t.data_ptr() for t in out), unf.data_ptr(), hist.data_ptr(),
-                        trips.data_ptr(), _build.stream_of(words))
+            _build.launch(self.lib, self.f, self.name, words, *head,
+                          *(t.data_ptr() for t in out), unf.data_ptr(), hist.data_ptr(),
+                          trips.data_ptr())
             extra = ()
-        _build.check(self.lib, rc, self.name)
         sp0, ep0, sp, ep, rem, leave = out
         return (sp0, ep0, sp, ep, rem, unf, trips, leave) + extra
 

@@ -3,11 +3,16 @@ call, on one CUDA card: the host issue, device time and operations of
 every call of engine.device_prep_packed, engine.compact_counts and
 engine.compact in one block, and the operations of the whole block.
 
-Two configurations (chip_smoke.py's):
+Three configurations (chip_smoke.py's):
   ecoli  phase 5: the CLI's default index (sa_rate 8, read_len 100,
          max_hits 16, max_cand 32, kmer_d 11) of the random E. coli-size
          genome with its repeat family; one block of 16,384 reads of
          100 bp (<= 2 mismatches);
+  chr21  phase 10: `build-index --shards 2 --jobs 2` at the CLI defaults
+         of the random genome of chr21's length; one block of 16,384
+         reads, through the loop form and the fused one
+         (Engine(fuse_shards=True): one CUDA graph replay a block, whose
+         launches only the trace sees);
   int32  phase 14a: one shard of 2^28 + 4,096 bp (test_scale_int32's
          genome, seed 77; sa_rate 8, max_hits 4, max_cand 8, kmer_d 11,
          so two wide steps), built in a child process while `ecoli` runs
@@ -28,15 +33,22 @@ re-run included), then each recorded call replayed alone:
   eager_ops   aten operations dispatched a call (TorchDispatchMode);
 and for the whole block: the wall of its dispatch_block (three runs),
 and in one more dispatch_block + finish_block its device operations
-and their summed time, the aten operations of its dispatch_block and of
-its finish_block (the heal runs there), and the aten operations and
-kernel names that contain "cummax" or "scatter"
-(torch.profiler with CPU and CUDA activity). One JSON line per
-configuration and k, after the card's name and power limit.
+and their summed time, each kernel's launches and summed device µs
+counted by kernel name (`_build.launches_in_trace`: the one count that
+sees a graph replay's launches), the aten operations of its
+dispatch_block and of its finish_block (the heal runs there), and the
+aten operations and kernel names that contain "cummax" or "scatter"
+(torch.profiler with CPU and CUDA activity; the block is the second of
+the window, the first warms the profiler). One JSON line per
+configuration, form and k, after the card's name and power limit.
+
+--package DIR imports bwtpu_torch from DIR instead (an earlier tree,
+unpacked with `git archive`).
 
 Needs a CUDA card; there is no fallback.
 
-Run:  python scripts/torch_stage_ops.py [--configs ecoli int32] [--int32-dir DIR]
+Run:  python scripts/torch_stage_ops.py [--configs ecoli chr21 int32] [--int32-dir DIR]
+                                        [--package _ab/parent]
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import importlib.util
 import io
 import json
 import os
@@ -55,6 +68,16 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+
+def _chip_smoke():
+    """This tree's chip_smoke.py (whatever package --package puts first)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT,
+                                                                           "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
 STAGES = ("device_prep_packed", "compact_counts", "compact")
 REPS = 20  # calls a replay's timing and profile window
 
@@ -63,18 +86,16 @@ def recording(calls: dict):
     """Patch the engine's three stage names so that every call's
     arguments are recorded (cloned) in calls[name]; returns the restore
     list."""
-    import torch
-
     from bwtpu_torch import engine
 
+    clone_args = sys.modules["chip_smoke"].clone_args
     saved = []
     for name in STAGES:
         orig = getattr(engine, name)
         saved.append((name, orig))
 
         def rec(*args, _orig=orig, _name=name):
-            calls[_name].append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                                      for a in args))
+            calls[_name].append(clone_args(args))
             return _orig(*args)
 
         setattr(engine, name, rec)
@@ -97,24 +118,24 @@ def eager_ops(fn) -> collections.Counter:
     return seen
 
 
-def device_window(fn, reps: int, cpu: bool = False):
-    """(device events, profile) of `reps` fn() calls under torch.profiler;
-    a window with no device event delivered is retried (twice)."""
+def device_window(fn, reps: int):
+    """Device events of `reps` fn() calls under torch.profiler (CUDA
+    activity); a window with no device event delivered is retried
+    (twice), then [] is returned (the profiler sometimes delivers none)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     for _ in range(3):
-        with profile(activities=acts) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
         if dev:
-            return dev, prof
-    raise RuntimeError("torch.profiler delivered no device activity in three windows")
+            return dev
+    return []
 
 
 def issue_us(fn, reps: int) -> float:
@@ -134,6 +155,48 @@ def issue_us(fn, reps: int) -> float:
     return sorted(walls)[reps // 2] * 1e6
 
 
+def counted_window(run):
+    """(device events, profile) of one run() under torch.profiler with CPU
+    and CUDA activity, after one run() in the same window that is not
+    counted (a trace can miss the first device events of its first
+    replay); a window with none delivered is retried (twice)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+            with record_function("torch_stage_ops.counted"):
+                run()
+                torch.cuda.synchronize()
+        events = prof.events()
+        span = next(e.time_range for e in events if e.name == "torch_stage_ops.counted"
+                    and e.device_type == DeviceType.CPU)
+        dev = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.time_range.start >= span.start]
+        if dev:
+            return dev, prof
+    raise RuntimeError("torch.profiler delivered no device activity in three windows")
+
+
+def kernels_in(dev) -> dict:
+    """{kernel: {"launches": n, "us": summed device µs}} of device events,
+    by kernel name, for the kernels that ran."""
+    from bwtpu_torch.kernels import _build
+
+    out = {}
+    for e in dev:
+        hit = {n: c for n, c in _build.launches_in_trace([e.name]).items() if c}
+        for n in hit:
+            r = out.setdefault(n, {"launches": 0, "us": 0.0})
+            r["launches"] += 1
+            r["us"] += e.time_range.elapsed_us()
+    return out
+
+
 def replay(name: str, args) -> dict:
     """One recorded stage call, replayed alone."""
     from bwtpu_torch import engine
@@ -141,10 +204,13 @@ def replay(name: str, args) -> dict:
     fn = getattr(engine, name)
     call = lambda: fn(*args)  # noqa: E731
     call()  # warm
-    dev, _ = device_window(call, REPS)
+    dev = device_window(call, REPS)
+    if not dev:
+        say(f"  {name}: torch.profiler delivered no device activity for a replayed call "
+            f"in three windows; its device_us and device_ops read null")
     return {"issue_us": issue_us(call, REPS),
-            "device_us": sum(e.time_range.elapsed_us() for e in dev) / REPS,
-            "device_ops": len(dev) / REPS,
+            "device_us": sum(e.time_range.elapsed_us() for e in dev) / REPS if dev else None,
+            "device_ops": len(dev) / REPS if dev else None,
             "eager_ops": sum(eager_ops(call).values())}
 
 
@@ -166,11 +232,13 @@ def block_run(eng, blk, k: int, tag: str, smi: str) -> dict:
     for name in STAGES:
         per = [replay(name, a) for a in calls[name]]
         stages[name] = {"calls": len(per), "per_call": per,
-                        **{f"block_{m}": sum(p[m] for p in per)
+                        **{f"block_{m}": (None if any(p[m] is None for p in per)
+                                          else sum(p[m] for p in per))
                            for m in ("issue_us", "device_us", "device_ops", "eager_ops")}}
-    dev, prof = device_window(run, 1, cpu=True)
+    dev, prof = counted_window(run)
     names = sorted({e.name for e in prof.events()
                     if "cummax" in e.name or "scatter" in e.name})
+    kernels = kernels_in(dev)
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -184,17 +252,19 @@ def block_run(eng, blk, k: int, tag: str, smi: str) -> dict:
            "stages": stages,
            "block": {"dispatch_ms": sorted(walls), "device_ops": len(dev),
                      "device_us": sum(e.time_range.elapsed_us() for e in dev),
+                     "kernels": kernels,
                      "eager_ops_dispatch": sum(ops.values()),
                      "eager_ops_finish": sum(fops.values()),
                      "cummax_or_scatter_names": names}}
     say(f"{tag} k={k}: " + "; ".join(
         f"{n} x{s['calls']}: issue {s['block_issue_us']:.1f} us, device "
-        f"{s['block_device_us']:.1f} us, {s['block_device_ops']:.0f} device ops, "
+        f"{s['block_device_us']} us, {s['block_device_ops']} device ops, "
         f"{s['block_eager_ops']} eager ops" for n, s in stages.items())
         + f"; block: dispatch {sorted(walls)[1]:.2f} ms, {len(dev)} device ops, "
           f"{rec['block']['device_us']:.1f} us, "
           f"{rec['block']['eager_ops_dispatch']} + {rec['block']['eager_ops_finish']} eager ops "
-          f"(dispatch + finish); cummax/scatter: {names}")
+          f"(dispatch + finish); cummax/scatter: {names}; kernels (launches, µs): "
+          + ", ".join(f"{n} {r['launches']} {r['us']:.1f}" for n, r in kernels.items()))
     print(json.dumps(rec), flush=True)
     return rec
 
@@ -214,7 +284,7 @@ def say(*a) -> None:
 
 def ecoli(tmp: str, smi: str) -> None:
     """chip_smoke.py phase 5's index and one block of its reads."""
-    import chip_smoke
+    chip_smoke = sys.modules["chip_smoke"]
     from bwtpu_torch.engine import Engine
     from bwtpu_torch.index import load_index
     from bwtpu_torch.io import write_fasta
@@ -232,10 +302,33 @@ def ecoli(tmp: str, smi: str) -> None:
         block_run(Engine(shards, device="cuda"), packed_block(reads), k, "ecoli", smi)
 
 
+def chr21(tmp: str, smi: str) -> None:
+    """chip_smoke.py phase 10's 2-shard index and one block of 16,384
+    reads, in the loop form and the fused one."""
+    chip_smoke = sys.modules["chip_smoke"]
+    from bwtpu_torch.engine import Engine
+    from bwtpu_torch.index import load_index
+    from bwtpu_torch.io import write_fasta
+    from bwtpu_torch.simulate import simulate_reads
+
+    genome = chip_smoke.paired_genome()
+    fa, idx = os.path.join(tmp, "chr21.fa"), os.path.join(tmp, "chr21_idx")
+    write_fasta(fa, [("chr21_sim", genome)])
+    with contextlib.redirect_stdout(io.StringIO()):
+        chip_smoke.run_cli(["build-index", fa, idx, "--shards", "2", "--jobs", "2"])
+    shards, _ = load_index(idx)
+    reads, _ = simulate_reads(genome, chip_smoke.BATCH, read_len=100, max_mismatches=2,
+                              seed=chip_smoke.SEED + 10)
+    for k in (0, 2):
+        for fuse in (False, True):
+            block_run(Engine(shards, device="cuda", fuse_shards=fuse), packed_block(reads), k,
+                      "chr21-fused" if fuse else "chr21", smi)
+
+
 def int32(proc, path: str, smi: str) -> None:
     """chip_smoke.py phase 14a's shard (built by `proc`, or already in
     `path` when proc is None) and one block of 65,536 reads."""
-    import chip_smoke
+    chip_smoke = sys.modules["chip_smoke"]
     from bwtpu_torch.engine import Engine
     from bwtpu_torch.index import load_index
     from bwtpu_torch.simulate import random_genome, simulate_reads
@@ -253,15 +346,20 @@ def int32(proc, path: str, smi: str) -> None:
 
 
 def main(argv=None) -> int:
-    import torch
-
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--configs", nargs="*", default=["ecoli", "int32"],
-                    choices=["ecoli", "int32"])
+                    choices=["ecoli", "chr21", "int32"])
     ap.add_argument("--int32-dir", help="the int32 index's directory: built there when "
                                         "it holds none, else loaded (default: a temporary one)")
+    ap.add_argument("--package", help="import bwtpu_torch from this directory")
     args = ap.parse_args(argv)
     configs = args.configs
+    if args.package:
+        sys.path.insert(0, os.path.abspath(args.package))
+    _chip_smoke()
+
+    import torch
+
     if not torch.cuda.is_available():
         print("torch_stage_ops: no CUDA device", file=sys.stderr)
         return 2
@@ -279,6 +377,8 @@ def main(argv=None) -> int:
         try:
             if "ecoli" in configs:
                 ecoli(tmp, smi)
+            if "chr21" in configs:
+                chr21(tmp, smi)
             if "int32" in configs:
                 int32(proc, path, smi)
         finally:

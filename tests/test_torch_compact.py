@@ -150,6 +150,77 @@ def test_revcomp_packed_plain_matches_bwtpu(L):
     _eq(back[1], amb)
 
 
+def _stacked_want(w, amb, L):
+    """bwtpu's revcomp_packed with device_prep_packed's stacking: forward
+    rows first, then the reverse complements; lens2 = L."""
+    rc_w, rc_a = jprep.revcomp_packed(jnp.asarray(w), jnp.asarray(amb), L)
+    return (np.concatenate([w, np.asarray(rc_w)]), np.concatenate([amb, np.asarray(rc_a)]),
+            np.full(2 * len(w), L, np.int32))
+
+
+def _in_place(w, amb):
+    """The engine's upload: stacked int32[2B, W] planes with the reads in
+    rows [0, B) (rows [B, 2B) garbage), and those rows as the inputs."""
+    B, W = w.shape
+    planes = [torch.full((2 * B, W), -7, dtype=torch.int32) for _ in range(2)]
+    planes[0][:B] = _t(w)
+    planes[1][:B] = _t(amb)
+    return planes[0][:B], planes[1][:B], tuple(planes)
+
+
+@pytest.mark.parametrize("B", [0, 300])
+@pytest.mark.parametrize("L", [17, 32, 33, 100, 128, 129, 400])
+def test_revcomp_both_in_place_matches_plain_and_bwtpu(L, B):
+    """The engine's call of revcomp_both (words and amb are rows [0, B) of
+    the stacked planes; only rows [B, 2B) and lens2 are written, into those
+    planes) equal to revcomp_both_plain and to bwtpu's revcomp_packed +
+    device_prep_packed's stacking: packed reads with every seventh read
+    all-ambiguous, and random words; so is the forward call into given
+    planes, and device_prep_packed's in-place call."""
+    rng = np.random.default_rng(L + B)
+    W = (L + 15) // 16
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.int32)
+    amb = (rng.random((B, L)) < 0.05).astype(np.int32)
+    amb[::7] = 1
+    words, amb_bits, _ = j_pack_reads(codes, amb, np.full(B, L, np.int32))
+    noise = rng.integers(-2**31, 2**31, size=(B, W), dtype=np.int64).astype(np.int32)
+    for w in (words, noise):
+        w = np.asarray(w).reshape(B, W)
+        a = np.asarray(amb_bits).reshape(B, W)
+        want = _stacked_want(w, a, L) if B else (w, a, np.zeros(0, np.int32))
+        plain = tprep.revcomp_both_plain(_t(w), _t(a), L)
+        words_v, amb_v, planes = _in_place(w, a)
+        got = tprep.revcomp_both(words_v, amb_v, L, planes)
+        assert got[0] is planes[0] and got[1] is planes[1]
+        ahead = tuple(torch.full((2 * B, W), -7, dtype=torch.int32) for _ in range(2))
+        fwd = tprep.revcomp_both(_t(w), _t(a), L, ahead)
+        for x, y, z, v in zip(got, plain, fwd, want, strict=True):
+            _eq(x, v)
+            _eq(y, v)
+            _eq(z, v)
+        words_v, amb_v, planes = _in_place(w, a)
+        rw2, ab2, lens2, lm2 = te.device_prep_packed(words_v, amb_v, L, planes)
+        for x, v in zip((rw2, ab2, lens2), want):
+            _eq(x, v)
+        _eq(lm2, np.broadcast_to(te._len_mask_words(L), (2 * B, W)))
+
+
+@pytest.mark.parametrize("case", ["shifted_rows", "reverse_half", "words_only", "planes_share"])
+def test_revcomp_both_refuses_other_overlaps(case):
+    """Inputs and outputs may overlap only as the in-place call has them
+    (words and amb exactly rows [0, B) of rw2 and ab2); any other overlap
+    raises, on the CPU as on the card."""
+    rng = np.random.default_rng(3)
+    w, a = (np.asarray(x) for x in _packed(rng, 40, 100))
+    words_v, amb_v, (rw2, ab2) = _in_place(w, a)
+    args = {"shifted_rows": (rw2[1:41], ab2[1:41], (rw2, ab2)),
+            "reverse_half": (rw2[40:], ab2[40:], (rw2, ab2)),
+            "words_only": (words_v, _t(a), (rw2, ab2)),
+            "planes_share": (words_v, amb_v, (rw2, rw2))}[case]
+    with pytest.raises(ValueError, match="overlap"):
+        tprep.revcomp_both(args[0], args[1], 100, args[2])
+
+
 def test_device_prep_packed_on_cpu_is_the_plain_version():
     """engine.device_prep_packed's four outputs on CPU tensors: the plain
     revcomp_both and the cached length mask, expanded to 2B rows."""

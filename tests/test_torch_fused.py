@@ -166,6 +166,48 @@ def test_fused_equals_the_loop_form(reads, k, tiered):
     assert loop._cand_live_frac == fused._cand_live_frac
 
 
+HEAL_CFG = EngineConfig(sa_rate=4, max_hits=2, max_cand=2, read_len=50, loc_factor=0.5,
+                        min_trips=1)
+
+
+@pytest.mark.parametrize("caps", ["defaults", "binding"])
+@pytest.mark.parametrize("fuse", [False, True], ids=["loop", "fused"])
+@pytest.mark.parametrize("k,tiered", [(0, False), (2, False), (2, True)],
+                         ids=["hits_k0", "hits_k2", "tiered"])
+def test_prep_runs_once_a_block(reads, monkeypatch, k, tiered, fuse, caps):
+    """A 3-shard engine preps a block once for every shard: one
+    device_prep_packed call a dispatched block (counted by monkeypatch; a
+    heal dispatches the block again), the in-place call on the block's
+    stacked planes (the reads in rows [0, Bp)), in the loop and the fused
+    form; hits, truncation flags and BatchStats equal bwtpu's list form
+    (at binding caps, with heals)."""
+    genome, cfg = (GENOME, CFG) if caps == "defaults" else (GENOME[:120] * 5 + GENOME[:3000],
+                                                            HEAL_CFG)
+    shards = _shards(genome, cfg)
+    if caps == "binding":
+        reads = simulate_reads(genome, 12, read_len=50, max_mismatches=k, seed=23)[0]
+    ej = je.Engine(shards, vmap_shards=False, fuse_shards=fuse)
+    et = te.Engine(shards, device="cpu", fuse_shards=fuse)
+    calls = []
+    prep = te.device_prep_packed
+
+    def counted(*args):
+        rw2, ab2 = args[3]
+        Bp = rw2.shape[0] // 2
+        calls.append(args[0].data_ptr() == rw2.data_ptr() and args[1].data_ptr()
+                     == ab2.data_ptr() and args[0].shape[0] == Bp)
+        return prep(*args)
+
+    monkeypatch.setattr(te, "device_prep_packed", counted)
+    blk = ReadBlock.from_reads(reads)
+    handle = et.dispatch_block(blk, k, pad_to=32, tiered=tiered)
+    assert isinstance(handle[4], tuple) == fuse
+    _assert_flat_equal(et.finish_block(handle), _run(ej, blk, k, pad_to=32, tiered=tiered))
+    assert _stats(et) == _stats(ej)
+    assert calls == [True] * (1 + et.stats.heals)
+    assert caps == "defaults" or et.stats.heals >= 1
+
+
 def test_one_shard_takes_the_loop_form(reads):
     """As in bwtpu, the fused form applies only with more than one shard."""
     eng = te.Engine(_shards()[:1], device="cpu", fuse_shards=True)
@@ -224,6 +266,11 @@ def test_launches_recorded_into_a_graph_are_tallied_not_counted():
     ("compact_mask", ["(anonymous namespace)::compact_mask_kernel(bool const*, int, bool*)",
                       "(anonymous namespace)::compact_mask_tiles_kernel(bool const*, int)",
                       "my_compact_mask_kernel_x"], 2),
+    ("revcomp_both", ["void (anonymous namespace)::revcomp_both_kernel<7, false>(unsigned "
+                      "int const*, unsigned int const*, int, int, int, int, int)",
+                      "void (anonymous namespace)::revcomp_both_kernel<0, true>(int)",
+                      "(anonymous namespace)::revcomp_both_kernel(unsigned int const*)",
+                      "at::native::revcomp_both_kernel_x"], 3),
 ])
 def test_launches_in_trace_by_kernel_name(kernel, names, want):
     """A trace's device kernel names map to the wrapper that launches them,

@@ -835,11 +835,11 @@ def test_block_dispatch_does_not_sync(cuda, three_shards, fuse, k, tiered):
     shards, blks = three_shards
     eng = Engine(shards, device="cuda", fuse_shards=fuse)
     want = eng.finish_block(eng.dispatch_block(blks[0], k, pad_to=1024, tiered=tiered))
-    rw, ab, Bp = eng._upload_block(blks[0], 1024)
+    rw2, ab2, Bp = eng._upload_block(blks[0], 1024)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        handle = eng._dispatch_packed(blks[0], rw, ab, Bp, k, 0, tiered)
+        handle = eng._dispatch_packed(blks[0], rw2, ab2, Bp, k, 0, tiered)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert handle[6] == ("tiered" if tiered else "hits")
@@ -1017,8 +1017,8 @@ def _direct(lib, kernel, x, H, cap, form, words):
     ws = torch.empty(words, dtype=torch.int32, device=x.device)
     flag = torch.empty(x.shape[0], dtype=torch.bool, device=x.device)
     head = (x.data_ptr(), x.shape[0]) + ((H,) if kernel == "slots" else ())
-    rc = getattr(lib, f"bwtpu_compact_{kernel}")(*head, cap, form, ws.data_ptr(), words,
-                                                 flag.data_ptr(), _build.stream_of(x))
+    rc = _build.call(getattr(lib, f"bwtpu_compact_{kernel}"), x, *head, cap, form,
+                     ws.data_ptr(), words, flag.data_ptr())
     return rc, ws[:cap], ws[cap], ws[cap + 1], flag
 
 
@@ -1103,22 +1103,86 @@ def test_compaction_graph_capture_and_replay(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("instance", ["forward", "in_place", "unaligned"])
 @pytest.mark.parametrize("B,L", [(1000, 100), (777, 16), (513, 64), (300, 385), (300, 400),
-                                 (1, 1), (0, 100), (524288, 100)])
-def test_revcomp_both_kernel_matches_plain(cuda, B, L):
+                                 (1, 1), (0, 100), (524288, 100), (65, 17), (129, 33),
+                                 (200, 65), (191, 96), (64, 113), (63, 128), (257, 129)])
+def test_revcomp_both_kernel_matches_plain(cuda, B, L, instance):
     """revcomp_both (csrc/prep.cu) against revcomp_both_plain: random words
-    and ambiguity bits, L a multiple of 16 or not, W = 25, one read, no
-    read, the bench's 524,288 reads."""
+    and ambiguity bits, L a multiple of 16 or not, every templated W (1-8)
+    and the run-time-W instance (W 9 and 25), B x W not a multiple of a
+    CTA's words, one read, no read, the bench's 524,288 reads. Instances:
+    forward (separate rows, both halves written), in_place (the engine's
+    call: the reads are rows [0, B) of the planes, only the reverse half
+    written), unaligned (forward, with inputs and output planes that are
+    views one row into their buffers)."""
     from bwtpu_torch.kernels import prep
 
     rng = np.random.default_rng(B + L)
     W = (L + 15) // 16
     words, amb = (_t(rng.integers(-2**31, 2**31, size=(B, W), dtype=np.int64)
                      .astype(np.int32), cuda) for _ in range(2))
-    got = prep.revcomp_both(words, amb, L)
     want = prep.revcomp_both_plain(words, amb, L)
+    if instance == "forward":
+        got = prep.revcomp_both(words, amb, L)
+    elif instance == "in_place":
+        planes = tuple(torch.full((2 * B, W), -7, dtype=torch.int32, device=cuda)
+                       for _ in range(2))
+        planes[0][:B] = words
+        planes[1][:B] = amb
+        got = prep.revcomp_both(planes[0][:B], planes[1][:B], L, planes)
+        assert got[0] is planes[0] and got[1] is planes[1]
+    else:
+        def off(x, rows):
+            buf = torch.full((rows + 1, W), -7, dtype=torch.int32, device=cuda)
+            buf[1:] = x
+            return buf[1:]
+
+        planes = tuple(off(torch.zeros(2 * B, W, dtype=torch.int32, device=cuda), 2 * B)
+                       for _ in range(2))
+        got = prep.revcomp_both(off(words, B), off(amb, B), L, planes)
+    torch.cuda.synchronize()
     for name, a, b in zip(("rw2", "ab2", "lens2"), got, want, strict=True):
         assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_engine_on_the_second_card_with_the_first_current(cuda):
+    """ROADMAP C.8: with cuda:0 the current device, chip_smoke phase 5's
+    block (16,384 reads of 100 bp on the CLI-default index of an E.
+    coli-size genome) through Engine(..., "cuda:1") at k = 0 and 2 gives
+    the hits and truncation flags it gives on cuda:0, its kernels launched
+    there (each launch made current on its tensors' card). Skips on a
+    host with one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from bwtpu_torch.engine import Engine
+    from bwtpu_torch.kernels import _build
+    from bwtpu_torch.readblock import ReadBlock
+    from bwtpu_torch.simulate import ECOLI_SCALE
+
+    genome = random_genome(ECOLI_SCALE, seed=20261016)
+    idx = build_fm_index(genome, EngineConfig())
+    reads, _ = simulate_reads(genome, 16384, read_len=L, max_mismatches=2, seed=20261017)
+    blk = ReadBlock.from_reads(reads)
+    torch.cuda.set_device(0)
+    got = {}
+    for dev in ("cuda:0", "cuda:1"):
+        eng = Engine([idx], device=dev)
+        for k in (0, 2):
+            _build.reset_launches()
+            flat = eng.finish_block(eng.dispatch_block(blk, k, pad_to=16384))
+            ran = _build.launch_counts()
+            assert all(ran[n] >= 1 for n in ("search_multistep", "revcomp_both",
+                                             "compact_slots", "compact_mask")), (dev, k, ran)
+            got[dev, k] = [getattr(flat, n).tobytes() for n in ("read_idx", "pos",
+                                                                  "strand_rev", "nm")]
+            got[dev, k].append(None if flat.truncated is None else flat.truncated.tobytes())
+        assert torch.cuda.current_device() == 0
+        assert eng.dev_shards[0].lattice.device == torch.device(dev)
+    for k in (0, 2):
+        assert got["cuda:1", k] == got["cuda:0", k], k
+        assert got["cuda:0", k][0], k  # hits were found
 
 
 @pytest.mark.gpu

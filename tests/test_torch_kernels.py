@@ -257,3 +257,71 @@ def test_wrappers_take_the_plain_version_on_cpu(indexes):
     np.testing.assert_array_equal(got, np.asarray(j_locate_rows(
         shard1.lattice, shard1.ssa, shard1.C, shard1.dollar_row,
         jnp.asarray(rows[sel.numpy()]), jnp.asarray(np.arange(200) < 170), 1)))
+
+
+# entry points of the kernel libraries that launch nothing (sizes, queries,
+# the error name); l2_fetch_granularity is documented to act on the
+# current device
+NOT_LAUNCHES = {"bwtpu_compact_tile", "bwtpu_compact_cluster_query", "bwtpu_searchk_exit_tile",
+                "bwtpu_sw_max_band", "bwtpu_l2_fetch_granularity",
+                "bwtpu_cuda_error_name"}
+
+
+def _kernel_modules():
+    """(path, source) of every module of the port that loads a kernel
+    library (`_build.library`)."""
+    import glob
+    import os
+
+    from bwtpu_torch.kernels import _build
+
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(_build.__file__)))
+    for path in sorted(glob.glob(os.path.join(pkg, "**", "*.py"), recursive=True)):
+        with open(path) as f:
+            src = f.read()
+        if "_build.library(" in src or path.endswith("_build.py"):
+            yield path, src
+
+
+def test_every_kernel_launch_goes_through_the_device_guard():
+    """C.8: every kernel launch of the port goes through _build.call,
+    which makes the tensor's device current around the ctypes call and
+    passes that device's current stream. No other code reads a CUDA
+    stream handle, and in the modules that load a kernel library no entry
+    point that launches is called directly: it is passed to
+    _build.launch / _build.call."""
+    import ast
+
+    from bwtpu_torch.kernels import _build
+
+    modules = dict(_kernel_modules())
+    assert len(modules) >= 9, sorted(modules)
+    for path, src in modules.items():
+        tree = ast.parse(src)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute) and node.attr == "cuda_stream":
+                assert path == _build.__file__, f"{path}:{node.lineno} reads a stream handle"
+        for scope in [tree] + [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)]:
+            bound = {}  # the scope's names of entry points: f = lib.bwtpu_x
+            for node in ast.walk(scope):
+                if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Attribute)
+                        and node.value.attr.startswith("bwtpu_")):
+                    bound.update((t.id, node.value.attr) for t in node.targets
+                                 if isinstance(t, ast.Name))
+            for node in ast.walk(scope):
+                if not isinstance(node, ast.Call):
+                    continue
+                fn = node.func
+                name = (fn.attr if isinstance(fn, ast.Attribute)
+                        and fn.attr.startswith("bwtpu_")
+                        else bound.get(fn.id) if isinstance(fn, ast.Name) and scope is not tree
+                        else None)
+                assert name is None or name in NOT_LAUNCHES, \
+                    f"{path}:{node.lineno}: {name} called outside _build.launch"
+    guard = ast.parse(modules[_build.__file__])
+    call = next(n for n in guard.body if isinstance(n, ast.FunctionDef) and n.name == "call")
+    reads = [n for n in ast.walk(guard) if isinstance(n, ast.Attribute)
+             and n.attr == "cuda_stream"]
+    assert reads and all(call.lineno <= n.lineno <= call.end_lineno for n in reads)
+    with_device = [n for n in ast.walk(call) if isinstance(n, ast.With)]
+    assert with_device and "torch.cuda.device" in ast.unparse(with_device[0].items[0])
