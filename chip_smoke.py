@@ -169,9 +169,23 @@ Phases, in order; any failure raises and the exit code is not 0:
           then its card half again on the kept artifact with
           --fuse: the same checks, fused_dispatch true, graphs replayed,
           and the same hits sound as the loop's (its launches: only the
-          eager warm-ups, the replays' are not counted).
+          eager warm-ups, the replays' are not counted);
+     14c. the port's measurement programs (scripts/torch_<name>.py, the
+          JAX scripts' counterparts), all started at once as subprocesses,
+          each in a session of its own (SWEEPS): scale_chr21 on an E.
+          coli-size genome with 131,072 reads at sa_rate 1 and 8;
+          sweep_locate at B 65,536 with locv on and off and at sa_rate 2;
+          tune_exact at B 65,536, loc_factor 0.25 and 0.125 (the caps
+          bite); ab_batch 65536:11 with and without --k2; sweep_depth at
+          depths 10 and 11; e2e_profile on 131,072 reads; profile_build
+          at 16 Mbp. Each: rc 0, every line with the reference's keys
+          (SWEEP_KEYS) or format (SWEEP_LINES), overflow 0 where the
+          reference fails on it (sweep_locate, ab_batch), search_multistep
+          launched (all but profile_build, which runs on the host); each
+          one's wall and lines printed, their launches summed.
      Cuts: 14a is 1 shard of a human genome's 10, at its own offset of 0;
-     14b is 40 Mbp of 2.5 Gbp. Positions past 2^31 on the card come only
+     14b is 40 Mbp of 2.5 Gbp; 14c as listed (the full sizes are the
+     programs' defaults). Positions past 2^31 on the card come only
      from the script's full-size run, not from this smoke;
  15. the result lines.
 
@@ -3038,6 +3052,112 @@ def phase_scale_script(root: str, tmp: str, run) -> dict:
     return {n: lb[n] + lc[n] + fcard["launches"][n] for n in lb}
 
 
+# phase 14c: the port's measurement programs (scripts/torch_<script>.py),
+# each at a reduced size: {name: (script, arguments)}
+SWEEPS = {
+    "scale_chr21": ("scale_chr21", ("--genome-bp", "4641652", "--reads", "131072",
+                                    "--batch", "65536")),
+    "sweep_locate": ("sweep_locate", ("--configs", "1:1:0.75:1:65536", "1:0:0.75:1:65536",
+                                      "2:0:0.75:1:65536")),
+    "tune_exact": ("tune_exact", ("--batch", "65536", "--loc-factors", "0.25,0.125")),
+    "ab_batch": ("ab_batch", ("--configs", "65536:11")),
+    "ab_batch_k2": ("ab_batch", ("--configs", "65536:11", "--k2")),
+    "sweep_depth": ("sweep_depth", ("--depths", "10", "11", "--batch", "65536",
+                                    "--k2-batch", "65536")),
+    "e2e_profile": ("e2e_profile", ("--reads", "131072", "--batch", "65536")),
+    "profile_build": ("profile_build", ("--mbp", "16")),
+}
+SWEEP_TIMEOUT = 300  # seconds for all of phase 14c's subprocesses
+# the keys of each JSON-printing reference's lines (tests/test_torch_sweeps.py
+# and test_torch_profiles.py hold them equal to the references' own output)
+SWEEP_KEYS = {
+    "scale_chr21": {"config", "genome_bp", "n_shards", "min_trips", "exact_overflow",
+                    "k2_overflow", "sa_rate", "reads", "exact_reads_per_s", "k2_reads_per_s",
+                    "index_build_s", "upload_s", "hbm_index_bytes", "hbm_index_mb", "kmer_d",
+                    "platform"},
+    "tune_exact": {"kind", "batch", "min_trips", "loc_factor", "reads_per_s",
+                   "compact_overflow"},
+    "sweep_depth": {"d", "exact_rps", "exact_overflow", "table_mb", "k2_rps", "k2_overflow"},
+    "e2e_profile": {"reads", "fq_mb", "sam_mb", "wall_s", "serialized_reads_per_s",
+                    "engine_device_s", "engine_host_s", "parse_s", "slice_s", "dispatch_s",
+                    "finish_s", "primary_s", "emit_s", "write_s"},
+    "profile_build": {"mbp", "rss_gb", "build_total_s", "genome_gen", "sanitize_encode", "sais",
+                      "bwt_gather", "lattice_native", "tkey_passes", "key_gather",
+                      "kmer_searchsorted", "tc_cast", "precode_gathers", "occk_bincount",
+                      "occk_pack"},
+}
+# the text lines of the two references that print no JSON: (tag, M reads/s,
+# overflow[, cap_occ])
+SWEEP_LINES = {
+    "sweep_locate": r"^(sa_rate=\d+ locv=\d lf=[\d.]+ mt=\d+ B=\d+): ([\d.]+) M reads/s  "
+                    r"overflow=(\d+)  cap_occ=([\d.]+)$",
+    "ab_batch": r"^(B=\d+ d=\d+ k2=(?:True|False)): ([\d.]+) M reads/s  overflow=(\d+)$",
+}
+
+
+def phase_sweeps(root: str, tmp: str) -> collections.Counter:
+    """14c: every SWEEPS program on the card at once, each in a session of
+    its own, its stdout and stderr to files; each one's wall; rc 0 and
+    every line with the reference's keys or format; overflow 0 where the
+    reference fails on it (sweep_locate, ab_batch); search_multistep
+    launched by every program but profile_build (host only). Returns their
+    launches, summed."""
+    import re
+
+    say("[14] 14c: the measurement programs on the card, all at once, at reduced sizes")
+    t0 = time.perf_counter()
+    runs = {}
+    for name, (script, argv) in SWEEPS.items():
+        out, err = (os.path.join(tmp, f"sweep_{name}.{s}") for s in ("out", "err"))
+        with open(out, "w") as fo, open(err, "w") as fe:
+            runs[name] = (subprocess.Popen(
+                [sys.executable, os.path.join(root, "scripts", f"torch_{script}.py"), *argv],
+                cwd=root, stdout=fo, stderr=fe, text=True, start_new_session=True), out, err)
+    walls, deadline = {}, t0 + SWEEP_TIMEOUT
+    try:
+        while len(walls) < len(runs) and time.perf_counter() < deadline:
+            for name, (proc, _, _) in runs.items():
+                if name not in walls and proc.poll() is not None:
+                    walls[name] = time.perf_counter() - t0
+            time.sleep(0.1)
+    finally:
+        for proc, _, _ in runs.values():
+            stop_session(proc)
+    launches = collections.Counter()
+    for name, (proc, out_path, err_path) in runs.items():
+        with open(out_path) as f:
+            out = f.read()
+        with open(err_path) as f:
+            err = f.read()
+        script = SWEEPS[name][0]
+        if proc.returncode != 0:
+            say(out[-4000:] + err[-4000:])
+        require(name in walls and proc.returncode == 0,
+                f"14c: torch_{script}.py exited with {proc.returncode}")
+        if script in SWEEP_LINES:
+            rows = [m.groups() for m in map(re.compile(SWEEP_LINES[script]).match,
+                                            out.splitlines()) if m]
+            require(rows and all(int(r[2]) == 0 for r in rows), f"14c {name}: {out}")
+            shown = [f"{r[0]}: {r[1]} M reads/s, overflow {r[2]}" for r in rows]
+        else:
+            lines = json_lines(out)
+            if script == "sweep_depth":  # its closing line holds every row
+                require(lines[-1]["rows"] == lines[:-1], f"14c {name}: {out}")
+                lines = lines[:-1]
+            require(lines and all(set(ln) == SWEEP_KEYS[script] for ln in lines),
+                    f"14c {name}: keys {[sorted(ln) for ln in lines]}")
+            shown = [json.dumps(ln) for ln in lines]
+        counts = json_lines(err.replace("# launches ", ""))
+        if script != "profile_build":
+            require(counts and counts[-1]["search_multistep"] > 0, f"14c {name}: {counts}")
+            launches.update(counts[-1])
+        say(f"  {name} ({' '.join(SWEEPS[name][1])}): rc 0 in {walls[name]:.1f} s")
+        for line in shown:
+            say(f"    {line}")
+    say(f"  phase 14c: {time.perf_counter() - t0:.1f} s; launches {dict(launches)}")
+    return launches
+
+
 # the packed main path's prep and compaction kernels
 PACKED = ("revcomp_both", "compact_slots", "compact_mask")
 
@@ -3161,6 +3281,7 @@ def run_phases(tmp: str, root: str, smi: str, genome: str, list_reads, list_trut
         script_launches = phase_scale_script(root, tmp, script)
     finally:
         stop_session(script[0])
+    sweep_launches = phase_sweeps(root, tmp)
     say(f"  phase 14: {time.perf_counter() - t0:.1f} s")
     paths = {"slice 1's path": launches, "the Read-list path": list_launches,
              "the sa_rate 1 path": locv_launches, "the --rescore path": rescore_launches,
@@ -3169,7 +3290,8 @@ def run_phases(tmp: str, root: str, smi: str, genome: str, list_reads, list_trut
              "the ring (every rank)": ring_launches, "the gather A/B": ab_launches,
              "the bench (sections and probe ranks)": bench_launches,
              "align --profile": profile_launches, "the 268 Mbp shard (14a)": int32_launches,
-             "torch_scale_human.py (14b)": script_launches}
+             "torch_scale_human.py (14b)": script_launches,
+             "the measurement programs (14c)": sweep_launches}
     builds = (f"the 2-shard build took {paired_build_s:.1f} s, the single-shard one "
               f"{records['search_multistep']['wide']['build_s']:.1f} s")
     return records, paths, builds
