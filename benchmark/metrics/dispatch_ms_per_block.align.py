@@ -1,0 +1,7 @@
+"""dispatch_ms_per_block.align: the mean wall of Engine.dispatch_block (pack,
+upload, issue) over the calls the window started, in ms (align cells)."""
+
+
+def read(w):
+    s, n = w.span_s("dispatch_block")
+    return s * 1e3 / n if w.entry == "align" and n else None
