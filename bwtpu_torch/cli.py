@@ -532,6 +532,8 @@ def cmd_scaling(args):
 
 
 def _print_summary(engine, total, t_start) -> dict:
+    from bwtpu_torch import trace
+
     dt = time.time() - t_start
     st = engine.stats
     summary = {
@@ -542,6 +544,9 @@ def _print_summary(engine, total, t_start) -> dict:
         "compact_overflows": st.compact_overflows, "heals": st.heals,
         "escalated": st.escalated, "truncated_reads": st.truncated_reads,
     }
+    spans, counters = trace.totals()  # everything the recorder holds
+    summary["spans"] = {n: [c, round(w, 4), round(u, 4)] for n, (c, w, u) in spans.items()}
+    summary["counters"] = counters
     print(json.dumps(summary), file=sys.stderr)
     return summary
 

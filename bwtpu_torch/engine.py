@@ -56,7 +56,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from bwtpu_torch import dna
+from bwtpu_torch import dna, trace
 from bwtpu_torch.config import EngineConfig
 from bwtpu_torch.golden import Hit
 from bwtpu_torch.index import OCCK_STEP_FROM_WIDTH, FMIndex
@@ -128,20 +128,21 @@ def upload_index(shards: list[FMIndex], device, locv: bool | None = None) -> lis
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
 
-    return [Shard(
-        lattice=put(s.search_lattice),
-        latk=put(s.occk_lattice if have_latk else np.zeros((1, 1), np.int32)),
-        latk_inv=put(s.occk_invalid if have_latk else np.full(4, -1, np.int32)),
-        ssa=put(s.ssa),
-        C=put(s.C),
-        dollar_row=int(s.dollar_row),
-        n=int(s.n),
-        text_len=int(s.text_len),
-        text_rows=put(build_text_rows(s.text_packed, read_len)),
-        locv=put(build_locv_rows(s.text_packed, s.ssa, read_len) if locv
-                 else np.zeros((1, 1), np.int32)),
-        kmer_tables={dd: put(s.kmer_tables[dd]) for dd in depths},
-    ) for s in shards]
+    with trace.span("upload_index"):
+        return [Shard(
+            lattice=put(s.search_lattice),
+            latk=put(s.occk_lattice if have_latk else np.zeros((1, 1), np.int32)),
+            latk_inv=put(s.occk_invalid if have_latk else np.full(4, -1, np.int32)),
+            ssa=put(s.ssa),
+            C=put(s.C),
+            dollar_row=int(s.dollar_row),
+            n=int(s.n),
+            text_len=int(s.text_len),
+            text_rows=put(build_text_rows(s.text_packed, read_len)),
+            locv=put(build_locv_rows(s.text_packed, s.ssa, read_len) if locv
+                     else np.zeros((1, 1), np.int32)),
+            kmer_tables={dd: put(s.kmer_tables[dd]) for dd in depths},
+        ) for s in shards]
 
 
 def pick_kmer_depth(available: list[int], min_len: int) -> int:
@@ -691,8 +692,8 @@ class BatchStats:
     heals: int = 0  # self-healing re-dispatches (doubled-cap retries)
     truncated_reads: int = 0  # reads still capacity-cut after max_heals
     escalated: int = 0  # tiered dispatch: reads sent to the seed tier
-    device_s: float = 0.0
-    host_s: float = 0.0
+    device_s: float = 0.0  # spans "wait" + "fetch": the host blocked on, and copying from, the card
+    host_s: float = 0.0  # spans "assemble": host assembly of the last level
 
 
 def _assemble_flat(reads, B, s_idx, row_idx, p, m, text_lens, offsets):
@@ -779,7 +780,16 @@ def assemble_hits_compact(reads, B, shard_comp, k, Ct, text_lens, offsets):
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
+    """A tensor on the host (counter d2h_bytes)."""
+    a = t.cpu().numpy()
+    trace.count("d2h_bytes", a.nbytes)
+    return a
+
+
+def _tolist(t: torch.Tensor) -> list:
+    """A tensor's values on the host (counter d2h_bytes)."""
+    trace.count("d2h_bytes", t.numel() * t.element_size())
+    return t.tolist()
 
 
 def _bitmap(flags: torch.Tensor) -> torch.Tensor:
@@ -819,7 +829,7 @@ def _pack(mode: str, outs) -> tuple[torch.Tensor, list]:
 
 def _fetch_grouped(buf: torch.Tensor, shapes: list) -> list[list[np.ndarray]]:
     """ONE device-to-host copy of a _pack buffer: per-shard numpy lists."""
-    flat = buf.cpu().numpy()
+    flat = _np(buf)
     per_shard, at = [], 0
     for shard in shapes:
         arrs = []
@@ -984,15 +994,19 @@ class Engine:
         """Packed forward reads into rows [0, Bp) of new int32[2Bp, W]
         stacked planes on the device (one host-to-device copy a plane),
         rows past the reads padded with zero words and all-ambiguous bits.
-        Rows [Bp, 2Bp) are left to the prep (_prepped)."""
+        Rows [Bp, 2Bp) are left to the prep (_prepped). Span "upload",
+        counter h2d_bytes."""
         n, W = rw.shape
         planes = []
-        for a, pad in ((rw, 0), (ab, 0x55555555)):
-            if Bp > n:
-                a = np.concatenate([a, np.full((Bp - n, W), pad, np.int32)])
-            t = torch.empty((2 * Bp, W), dtype=torch.int32, device=self.device)
-            t[:Bp].copy_(torch.from_numpy(np.ascontiguousarray(a)))
-            planes.append(t)
+        with trace.span("upload"):
+            for a, pad in ((rw, 0), (ab, 0x55555555)):
+                if Bp > n:
+                    a = np.concatenate([a, np.full((Bp - n, W), pad, np.int32)])
+                a = np.ascontiguousarray(a)
+                t = torch.empty((2 * Bp, W), dtype=torch.int32, device=self.device)
+                t[:Bp].copy_(torch.from_numpy(a))
+                planes.append(t)
+                trace.count("h2d_bytes", a.nbytes)
         return planes
 
     def _prepped(self, rw2, ab2, L: int, d: int):
@@ -1062,7 +1076,7 @@ class Engine:
             prepped = self._prepped(*self._upload(rw, ab, B), L, d)
             outs = [self._run_packed(sh, prepped, L, k, d, _level) for sh in self.dev_shards]
             mode = "compact" if self._multistep(d) else "dense"
-            return (reads, B, k, outs, time.perf_counter(), mode, _level)
+            return (reads, B, k, outs, mode, _level)
 
         enc, B = encode_batch(self.config, reads, k)
         mh, mc, lf, _ = self._caps(k, _level)
@@ -1080,7 +1094,7 @@ class Engine:
                 enc.read_words, enc.amb_bits, enc.len_mask, enc.lens)))
             outs = [inexact_pipeline(sh, *args, k=k, d=d, max_loc=mc, **opts)
                     for sh in self.dev_shards]
-        return (reads, B, k, outs, time.perf_counter(), "dense", _level)
+        return (reads, B, k, outs, "dense", _level)
 
     def _maybe_heal_batch(self, reads, k, overflow, compact_over, level):
         """Self-healing re-dispatch: when any row overflowed a capacity
@@ -1103,24 +1117,26 @@ class Engine:
         return None
 
     def finish_batch(self, handle) -> list[list[Hit]]:
-        """Materialize a dispatch_batch handle -> per-read Hit lists."""
-        reads, B, k, outs, t_disp, mode, level = handle
-        t1 = time.perf_counter()
+        """Materialize a dispatch_batch handle -> per-read Hit lists (spans
+        "fetch" and "assemble", which stats.device_s and host_s add, as in
+        finish_block)."""
+        reads, B, k, outs, mode, level = handle
         mh, mc, lf, hf = self._caps(k, level)
         Ct = (k + 1) * mc if k else mh
-        if mode == "compact":
-            # (cand_c, nm_c, sel, count, overflow, comp_over) per shard
-            counts = torch.stack([o[3] for o in outs]).tolist()
-            shard_comp = [(_np(o[0][:c]), _np(o[1][:c]), _np(o[2][:c]), c)
-                          for o, c in zip(outs, counts)]
-            overflow = np.stack([_np(o[4]) for o in outs])  # (shards, 2B)
-            compact_over = int(sum(_np(o[5]) for o in outs))
-        else:  # dense: (pos, valid, overflow, co) or (pos, nm, valid, overflow, co)
-            outs = [o if k else (o[0], None, *o[1:]) for o in outs]
-            pos, valid, overflow = (np.stack([_np(o[i]) for o in outs]) for i in (0, 2, 3))
-            nm = np.stack([_np(o[1]) for o in outs]) if k else None
-            compact_over = int(sum(_np(o[4]) for o in outs))
-        self.stats.device_s += time.perf_counter() - t_disp
+        with trace.span("fetch") as fetch:
+            if mode == "compact":
+                # (cand_c, nm_c, sel, count, overflow, comp_over) per shard
+                counts = _tolist(torch.stack([o[3] for o in outs]))
+                shard_comp = [(_np(o[0][:c]), _np(o[1][:c]), _np(o[2][:c]), c)
+                              for o, c in zip(outs, counts)]
+                overflow = np.stack([_np(o[4]) for o in outs])  # (shards, 2B)
+                compact_over = int(sum(_np(o[5]) for o in outs))
+            else:  # dense: (pos, valid, overflow, co) or (pos, nm, valid, overflow, co)
+                outs = [o if k else (o[0], None, *o[1:]) for o in outs]
+                pos, valid, overflow = (np.stack([_np(o[i]) for o in outs]) for i in (0, 2, 3))
+                nm = np.stack([_np(o[1]) for o in outs]) if k else None
+                compact_over = int(sum(_np(o[4]) for o in outs))
+        self.stats.device_s += fetch.wall
         healed = self._maybe_heal_batch(reads, k, overflow, compact_over, level)
         if healed is not None:
             return healed
@@ -1131,10 +1147,11 @@ class Engine:
                     "after %d heals; results may be incomplete — raise "
                     "loc_factor or max_heals", compact_over, level,
                 )
-            hits = assemble_hits_compact(reads, B, shard_comp, k, Ct,
-                                         self._text_lens(), self._offsets())
-            return self._finish_stats(reads, hits, overflow, compact_over, t1)
-        return self._assemble(reads, B, pos, nm, valid, overflow, compact_over, t1)
+            with trace.span("assemble") as asm:
+                hits = assemble_hits_compact(reads, B, shard_comp, k, Ct,
+                                             self._text_lens(), self._offsets())
+            return self._finish_stats(reads, hits, overflow, compact_over, asm.wall)
+        return self._assemble(reads, B, pos, nm, valid, overflow, compact_over)
 
     def align_batch(self, reads: list[Read], k: int | None = None) -> list[list[Hit]]:
         if not reads:
@@ -1142,17 +1159,18 @@ class Engine:
         k = self.config.k if k is None else k
         return self.finish_batch(self.dispatch_batch(reads, k))
 
-    def _assemble(self, reads, B, pos, nm, valid, overflow, compact_over, t1):
+    def _assemble(self, reads, B, pos, nm, valid, overflow, compact_over):
         if compact_over:
             log.warning(
                 "align_batch: compaction capacity overflowed by %d rows; "
                 "results may be incomplete — raise loc_factor/max_cand",
                 compact_over,
             )
-        out = assemble_hits(reads, B, pos, nm, valid, self._text_lens(), self._offsets())
-        return self._finish_stats(reads, out, overflow, compact_over, t1)
+        with trace.span("assemble") as asm:
+            out = assemble_hits(reads, B, pos, nm, valid, self._text_lens(), self._offsets())
+        return self._finish_stats(reads, out, overflow, compact_over, asm.wall)
 
-    def _finish_stats(self, reads, out, overflow, compact_over, t1):
+    def _finish_stats(self, reads, out, overflow, compact_over, host_s):
         n_over = int((overflow.sum(axis=0) > 0).sum())
         if n_over:
             log.warning(
@@ -1164,7 +1182,7 @@ class Engine:
         self.stats.hits += sum(len(h) for h in out)
         self.stats.overflow_reads += n_over
         self.stats.compact_overflows += compact_over
-        self.stats.host_s += time.perf_counter() - t1
+        self.stats.host_s += host_s
         return out
 
     def align_all(self, reads: list[Read], k: int | None = None,
@@ -1200,10 +1218,14 @@ class Engine:
         go to the device once for all shards (_upload_block), and the
         multi-step path preps both strands once for all of them; "hits" and
         "tiered" take the fused form with fuse_shards and more than one
-        shard. Returns a handle for finish_block."""
+        shard. Returns a handle for finish_block.
+
+        Span "dispatch" (pack, upload, issue inside), with a new block
+        number at level 0; a heal's dispatch keeps its block's."""
         k = self.config.k if k is None else k
-        return self._dispatch_packed(block, *self._upload_block(block, pad_to), k, _level,
-                                     tiered)
+        with trace.span("dispatch", block=-1 if _level else trace.new_block()):
+            return self._dispatch_packed(block, *self._upload_block(block, pad_to), k,
+                                         _level, tiered)
 
     def _upload_block(self, block, pad_to: int | None):
         """The block's packed forward reads on the device, padded to pad_to
@@ -1213,40 +1235,54 @@ class Engine:
 
         if not (0 < block.L <= self.config.read_len):
             raise ValueError(f"block read length {block.L} not in (0, {self.config.read_len}]")
-        rw, ab = pack_block(block)
+        with trace.span("pack"):
+            rw, ab = pack_block(block)
         Bp = pad_to or block.n
         return (*self._upload(rw, ab, Bp), Bp)
 
     def _dispatch_packed(self, block, rw2, ab2, Bp: int, k: int, level: int, tiered: bool):
         """dispatch_block once the reads are in rows [0, Bp) of the stacked
-        planes on the device."""
-        L = block.L
-        d = pick_kmer_depth(self.kmer_depths, L if k == 0 else L // (k + 1))
-        compact_out = self._multistep(d)
-        if tiered and k > 0 and not compact_out:
-            log.debug("tiered dispatch unavailable without the multi-step "
-                      "lattice; running the full inexact pipeline")
-        tiered = tiered and k > 0 and compact_out
-        mh, mc, _, _ = self._caps(k, level)
-        Ct = (k + 1) * mc if k else mh
-        if tiered or (compact_out and 2 * Bp * Ct * 4 < HIT_PAYLOAD_MAX):
-            mode = "tiered" if tiered else "hits"
-            run = functools.partial(self._shard_outputs, L=L, k=k, d=d, level=level,
-                                    mode=mode)
-            if self.fuse_shards and len(self.dev_shards) > 1:
-                # bwtpu's _packed_fn key (mode, k, d, L, both tiers' caps)
-                # plus the heal level, the rows and the wide steps
-                key = (mode, k, d, L, level, self._caps(k, level),
-                       self._caps(0, level) if tiered else None, Bp, self._wide_steps(d))
-                outs = self._dispatch_fused(lambda rw2, ab2: _pack(mode, run(rw2, ab2)), rw2,
-                                            ab2, key)
+        planes on the device (span "issue"). The handle carries the block
+        number and an event recorded after the block's work (None on the
+        CPU), which finish_block waits on."""
+        with trace.span("issue"):
+            L = block.L
+            d = pick_kmer_depth(self.kmer_depths, L if k == 0 else L // (k + 1))
+            compact_out = self._multistep(d)
+            if tiered and k > 0 and not compact_out:
+                log.debug("tiered dispatch unavailable without the multi-step "
+                          "lattice; running the full inexact pipeline")
+            tiered = tiered and k > 0 and compact_out
+            mh, mc, _, _ = self._caps(k, level)
+            Ct = (k + 1) * mc if k else mh
+            if tiered or (compact_out and 2 * Bp * Ct * 4 < HIT_PAYLOAD_MAX):
+                mode = "tiered" if tiered else "hits"
+                run = functools.partial(self._shard_outputs, L=L, k=k, d=d, level=level,
+                                        mode=mode)
+                if self.fuse_shards and len(self.dev_shards) > 1:
+                    # bwtpu's _packed_fn key (mode, k, d, L, both tiers' caps)
+                    # plus the heal level, the rows and the wide steps
+                    key = (mode, k, d, L, level, self._caps(k, level),
+                           self._caps(0, level) if tiered else None, Bp, self._wide_steps(d))
+                    outs = self._dispatch_fused(lambda rw2, ab2: _pack(mode, run(rw2, ab2)),
+                                                rw2, ab2, key)
+                else:
+                    outs = run(rw2, ab2)
             else:
-                outs = run(rw2, ab2)
-            return ("block", block, Bp, k, outs, time.perf_counter(), mode, level)
-        prepped = self._prepped(rw2, ab2, L, d)
-        outs = [self._run_packed(sh, prepped, L, k, d, level) for sh in self.dev_shards]
-        mode = "compact" if compact_out else "dense"
-        return ("block", block, Bp, k, outs, time.perf_counter(), mode, level)
+                prepped = self._prepped(rw2, ab2, L, d)
+                outs = [self._run_packed(sh, prepped, L, k, d, level) for sh in self.dev_shards]
+                mode = "compact" if compact_out else "dense"
+        return ("block", block, Bp, k, outs, (trace.current_block(), self._done_event()),
+                mode, level)
+
+    def _done_event(self):
+        """An event on the current stream after a dispatch's work (None on
+        the CPU): what finish_block's "wait" blocks on."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
 
     def _shard_outputs(self, rw2, ab2, *, L: int, k: int, d: int, level: int,
                        mode: str) -> list:
@@ -1318,115 +1354,142 @@ class Engine:
         still overflowed at the last level are flagged in
         FlatHits.truncated (SAM tag xo:i:1). Counts follow bwtpu's list
         form: in "hits" and "compact" modes the overflowed rows of each
-        shard add up, in "tiered" and "dense" modes a row counts once."""
-        tag, block, Bp, k, outs, t_disp, mode, level = handle
+        shard add up, in "tiered" and "dense" modes a row counts once.
+
+        Span "finish", and inside it "wait" (the host blocked on the card
+        until the dispatch's event; both with thread CPU time), "fetch" (the
+        copies to the host), then "heal" or, at the last level, "assemble"
+        (the columns, flatten_hits and the truncation flags). Counters overflow_rows.l<level>,
+        compact_drops.l<level> and hit_drops.l<level>: what overflowed at
+        each heal level. stats.device_s adds wait and fetch, stats.host_s
+        assemble."""
+        tag, block, Bp, k, outs, (seq, done), mode, level = handle
         assert tag == "block"
         mh, mc, lf, hf = self._caps(k, level)
         Ct = (k + 1) * mc if k else mh
         cfg = self.config
         can_heal = cfg.heal_overflow and level < cfg.max_heals
         n_over = compact_over = hit_over = 0
-        per_shard = None
-        if isinstance(outs, tuple):  # the fused form's buffer
-            per_shard = _fetch_grouped(*outs[1:])
-        elif mode == "tiered":  # every shard's 12 outputs in one copy
-            per_shard = _fetch_grouped(*_pack(mode, outs))
-        if mode == "hits":
-            if per_shard is not None:
-                # each shard's hits at hit_cap, its scalars, its overflow bitmap
-                scal = [s[2].tolist() for s in per_shard]
-                hits = [(s[0][:r[0]], s[1][:r[0]]) for s, r in zip(per_shard, scal)]
-                ov_rows = _unbits(np.bitwise_or.reduce([s[3] for s in per_shard]), 2 * Bp)
+        with trace.span("finish", block=seq, cpu=True):
+            with trace.span("wait", cpu=True) as wait:
+                if done is not None:
+                    done.synchronize()
+            with trace.span("fetch") as fetch:
+                per_shard = None
+                if isinstance(outs, tuple):  # the fused form's buffer
+                    per_shard = _fetch_grouped(*outs[1:])
+                elif mode == "tiered":  # every shard's 12 outputs in one copy
+                    per_shard = _fetch_grouped(*_pack(mode, outs))
+                if mode == "hits" and per_shard is not None:
+                    # each shard's hits at hit_cap, its scalars, its overflow bitmap
+                    scal = [s[2].tolist() for s in per_shard]
+                    hits = [(s[0][:r[0]], s[1][:r[0]]) for s, r in zip(per_shard, scal)]
+                    ov_rows = _unbits(np.bitwise_or.reduce([s[3] for s in per_shard]), 2 * Bp)
+                elif mode == "hits":
+                    # every shard's scalars in one transfer, then its hits up to
+                    # its count (fewer bytes than every shard's full hit buffer)
+                    scal = _tolist(torch.stack([x.to(torch.int64) for o in outs for x in
+                                                (o[2], o[3], o[4], o[5], o[7])]).view(-1, 5))
+                    hits = [(_np(o[0][:r[0]]), _np(o[1][:r[0]])) for o, r in zip(outs, scal)]
+                    ov_rows = torch.stack([o[6] for o in outs]).any(0)
+                elif mode == "compact":
+                    scal = _tolist(torch.stack([x.to(torch.int64) for o in outs for x in
+                                                (o[3], (o[4] > 0).sum(), o[5])]).view(-1, 3))
+                    shard_comp = [(_np(o[0][:r[0]]), _np(o[1][:r[0]]), _np(o[2][:r[0]]), r[0])
+                                  for o, r in zip(outs, scal)]
+                    ov_rows = torch.stack([o[4] > 0 for o in outs]).any(0)
+                elif mode == "dense":  # (pos, valid, overflow, loc_over) or (cand, nm, ...)
+                    outs = [o if k else (o[0], None, *o[1:]) for o in outs]
+                    ov_rows = torch.stack([o[3] for o in outs]).sum(0) > 0
+                    vals = _tolist(torch.stack([ov_rows.sum()]
+                                               + [o[4].to(torch.int64) for o in outs]))
+            self.stats.device_s += wait.wall + fetch.wall
+            if mode == "hits":
+                for cnt, _, _, _, cand_live in scal:
+                    self._observe(self._cand_live_frac, k, cand_live, Bp)
+                    self._observe(self._hit_live_frac, k, cnt, Bp)
+                n_over, compact_over, hit_over = (sum(r[i] for r in scal) for i in (1, 2, 3))
+            elif mode == "compact":
+                for cnt, _, _ in scal:
+                    self._observe(self._cand_live_frac, k, cnt, Bp)
+                n_over, compact_over = (sum(r[i] for r in scal) for i in (1, 2))
+            elif mode == "tiered":
+                ov_rows = False
+                for out_np in per_shard:
+                    out_np[10] = _unbits(out_np[10], 2 * Bp)
+                    ov_rows = ov_rows | out_np[10]
+                    compact_over += int(out_np[11])
+                    # per shard and at every heal level, as bwtpu counts it
+                    # (reference fault C.2)
+                    self.stats.escalated += int(out_np[9])
+                n_over = int(ov_rows.sum())
             else:
-                # every shard's scalars in one transfer, then its hits up to
-                # its count (fewer bytes than every shard's full hit buffer)
-                scal = torch.stack([x.to(torch.int64) for o in outs
-                                    for x in (o[2], o[3], o[4], o[5], o[7])]).view(-1, 5).tolist()
-                hits = [(_np(o[0][:r[0]]), _np(o[1][:r[0]])) for o, r in zip(outs, scal)]
-                ov_rows = torch.stack([o[6] for o in outs]).any(0)
-            shard_comp = []
-            for (cand, hm), (cnt, _, _, _, cand_live) in zip(hits, scal):
-                shard_comp.append((cand, hm % 4, hm // 4, cnt))
-                self._observe(self._cand_live_frac, k, cand_live, Bp)
-                self._observe(self._hit_live_frac, k, cnt, Bp)
-            n_over, compact_over, hit_over = (sum(r[i] for r in scal) for i in (1, 2, 3))
-        elif mode == "compact":
-            scal = torch.stack([x.to(torch.int64) for o in outs
-                                for x in (o[3], (o[4] > 0).sum(), o[5])]).view(-1, 3).tolist()
-            shard_comp = []
-            for o, (cnt, _, _) in zip(outs, scal):
-                shard_comp.append((_np(o[0][:cnt]), _np(o[1][:cnt]), _np(o[2][:cnt]), cnt))
-                self._observe(self._cand_live_frac, k, cnt, Bp)
-            n_over, compact_over = (sum(r[i] for r in scal) for i in (1, 2))
-            ov_rows = torch.stack([o[4] > 0 for o in outs]).any(0)
-        elif mode == "tiered":
-            mh0 = self._caps(0, level)[0]
-            cols, ov_rows = [], False
-            for s, out_np in enumerate(per_shard):
-                out_np[10] = _unbits(out_np[10], 2 * Bp)
-                rows_t, p_t, m_t, _, co_s = tiered_to_columns(out_np, mh0, mc, k, Bp)
-                cols.append((np.full(len(rows_t), s, np.int64), rows_t, p_t, m_t))
-                compact_over += co_s
-                ov_rows = ov_rows | out_np[10]
-                # per shard and at every heal level, as bwtpu counts it
-                # (reference fault C.2)
-                self.stats.escalated += int(out_np[9])
-            n_over = int(ov_rows.sum())
-        else:  # dense: (pos, valid, overflow, loc_over) or (cand, nm, valid, ...)
-            outs = [o if k else (o[0], None, *o[1:]) for o in outs]
-            ov_rows = torch.stack([o[3] for o in outs]).sum(0) > 0
-            vals = torch.stack([ov_rows.sum()] + [o[4].to(torch.int64) for o in outs]).tolist()
-            n_over, compact_over = vals[0], sum(vals[1:])
-        self.stats.device_s += time.perf_counter() - t_disp
-        if (n_over or compact_over or hit_over) and can_heal:
-            return self._heal_block(block, k, Bp, level, n_over,
-                                    compact_over + hit_over, tiered=mode == "tiered")
-        trunc_rows = None
-        if n_over:
-            trunc_rows = ov_rows if isinstance(ov_rows, np.ndarray) else _np(ov_rows)
-        if hit_over:
-            log.warning(
-                "align block: hit buffer overflowed by %d hits after %d heals "
-                "— results incomplete; raise config.hit_factor", hit_over, level,
-            )
-            self.stats.compact_overflows += hit_over
-        t1 = time.perf_counter()
-        if mode == "dense":
-            s_idx, row_idx, p, m = dense_to_columns(
-                np.stack([_np(o[0]) for o in outs]),
-                None if k == 0 else np.stack([_np(o[1]) for o in outs]),
-                np.stack([_np(o[2]) for o in outs]))
-        elif mode == "tiered":
-            s_idx, row_idx, p, m = (np.concatenate(c) for c in zip(*cols))
-        else:
-            s_idx, row_idx, p, m = compact_to_columns(shard_comp, k, Ct)
-        if compact_over:
-            log.warning(
-                "align block: compaction capacity overflowed by %d rows after "
-                "%d heals; affected reads are marked truncated — raise "
-                "loc_factor/max_cand or max_heals", compact_over, level,
-            )
-        if n_over:
-            log.warning(
-                "align block: %d read-strand rows overflowed interval capacity "
-                "after %d heals (max_hits=%d, max_cand=%d); affected reads are "
-                "marked truncated", n_over, level, mh, mc,
-            )
-        flat = flatten_hits(block.n, block.L, Bp, s_idx, row_idx, p, m,
-                            self._text_lens(), self._offsets())
-        if trunc_rows is not None:
-            # read-strand rows -> per-read flags ([0,Bp) fwd, [Bp,2Bp) rev)
-            tr = np.zeros(block.n, dtype=bool)
-            rows = np.flatnonzero(trunc_rows) % Bp
-            tr[rows[rows < block.n]] = True
-            flat = flat._replace(truncated=tr)
-            self.stats.truncated_reads += int(tr.sum())
-        self.stats.reads += block.n
-        self.stats.hits += len(flat.read_idx)
-        self.stats.overflow_reads += n_over
-        self.stats.compact_overflows += compact_over
-        self.stats.host_s += time.perf_counter() - t1
-        return flat
+                n_over, compact_over = vals[0], sum(vals[1:])
+            for name, v in (("overflow_rows", n_over), ("compact_drops", compact_over),
+                            ("hit_drops", hit_over)):
+                if v:
+                    trace.count(f"{name}.l{level}", v)
+            if (n_over or compact_over or hit_over) and can_heal:
+                return self._heal_block(block, k, Bp, level, n_over,
+                                        compact_over + hit_over, tiered=mode == "tiered")
+            if mode == "dense" or (n_over and torch.is_tensor(ov_rows)):
+                with trace.span("fetch") as fetch:  # what only the last level takes
+                    if n_over and torch.is_tensor(ov_rows):
+                        ov_rows = _np(ov_rows)
+                    if mode == "dense":
+                        dense = (np.stack([_np(o[0]) for o in outs]),
+                                 None if k == 0 else np.stack([_np(o[1]) for o in outs]),
+                                 np.stack([_np(o[2]) for o in outs]))
+                self.stats.device_s += fetch.wall
+            if hit_over:
+                log.warning(
+                    "align block: hit buffer overflowed by %d hits after %d heals "
+                    "— results incomplete; raise config.hit_factor", hit_over, level,
+                )
+                self.stats.compact_overflows += hit_over
+            if compact_over:
+                log.warning(
+                    "align block: compaction capacity overflowed by %d rows after "
+                    "%d heals; affected reads are marked truncated — raise "
+                    "loc_factor/max_cand or max_heals", compact_over, level,
+                )
+            if n_over:
+                log.warning(
+                    "align block: %d read-strand rows overflowed interval capacity "
+                    "after %d heals (max_hits=%d, max_cand=%d); affected reads are "
+                    "marked truncated", n_over, level, mh, mc,
+                )
+            with trace.span("assemble") as asm:
+                if mode == "dense":
+                    s_idx, row_idx, p, m = dense_to_columns(*dense)
+                elif mode == "tiered":
+                    mh0 = self._caps(0, level)[0]
+                    cols = []
+                    for s, out_np in enumerate(per_shard):
+                        rows_t, p_t, m_t, _, _ = tiered_to_columns(out_np, mh0, mc, k, Bp)
+                        cols.append((np.full(len(rows_t), s, np.int64), rows_t, p_t, m_t))
+                    s_idx, row_idx, p, m = (np.concatenate(c) for c in zip(*cols))
+                else:
+                    if mode == "hits":
+                        shard_comp = [(cand, hm % 4, hm // 4, r[0])
+                                      for (cand, hm), r in zip(hits, scal)]
+                    s_idx, row_idx, p, m = compact_to_columns(shard_comp, k, Ct)
+                flat = flatten_hits(block.n, block.L, Bp, s_idx, row_idx, p, m,
+                                    self._text_lens(), self._offsets())
+                if n_over:
+                    # read-strand rows -> per-read flags ([0,Bp) fwd, [Bp,2Bp) rev)
+                    tr = np.zeros(block.n, dtype=bool)
+                    rows = np.flatnonzero(ov_rows) % Bp
+                    tr[rows[rows < block.n]] = True
+                    flat = flat._replace(truncated=tr)
+            self.stats.host_s += asm.wall
+            if n_over:
+                self.stats.truncated_reads += int(tr.sum())
+            self.stats.reads += block.n
+            self.stats.hits += len(flat.read_idx)
+            self.stats.overflow_reads += n_over
+            self.stats.compact_overflows += compact_over
+            return flat
 
     def _observe(self, fracs: dict, k: int, live: int, Bp: int) -> None:
         """Raise fracs[k] to live rows / lanes (2 * Bp read-strand rows)."""
@@ -1434,12 +1497,13 @@ class Engine:
 
     def _heal_block(self, block, k, Bp, level, n_over, compact_over, tiered=False):
         """Re-dispatch a block with doubled caps on every shard
-        (self-healing)."""
+        (self-healing), in span "heal"."""
         self.stats.heals += 1
         log.info(
             "align block: %d overflowed rows / %d compaction drops — healing "
             "with 2^%d x caps", n_over, compact_over, level + 1,
         )
-        return self.finish_block(
-            self.dispatch_block(block, k, pad_to=Bp, _level=level + 1,
-                                tiered=tiered))
+        with trace.span("heal"):
+            return self.finish_block(
+                self.dispatch_block(block, k, pad_to=Bp, _level=level + 1,
+                                    tiered=tiered))

@@ -1,4 +1,5 @@
-# Copy of bwtpu/index.py for the port; only its imports differ (tests/test_torch_hostcopy.py).
+# Copy of bwtpu/index.py for the port; only its imports and load_index's trace span differ
+# (tests/test_torch_hostcopy.py).
 """Host-side FM-index construction and the HBM lattice layout.
 
 Layers L1/L2 (SURVEY.md §1, §3.1): suffix array -> BWT -> C table ->
@@ -51,7 +52,7 @@ import os
 
 import numpy as np
 
-from bwtpu_torch import dna, sais
+from bwtpu_torch import dna, sais, trace
 from bwtpu_torch.config import EngineConfig
 from bwtpu_torch.io import Contig
 
@@ -614,42 +615,43 @@ def save_index(path: str, shards: list[FMIndex], manifest: ShardManifest):
 
 
 def load_index(path: str) -> tuple[list[FMIndex], ShardManifest]:
-    with open(os.path.join(path, "meta.json")) as f:
-        meta = json.load(f)
-    if meta["format_version"] != FORMAT_VERSION:
-        raise ValueError(
-            f"index format v{meta['format_version']} != engine v{FORMAT_VERSION}; rebuild"
-        )
-    config = EngineConfig.from_json(meta["config"])
-    contigs = [Contig(**c) for c in meta["contigs"]]
-    m = meta["manifest"]
-    manifest = ShardManifest(
-        total_len=m["total_len"], overlap=m["overlap"], starts=m["starts"],
-        lengths=m["lengths"], contigs=contigs,
-    )
-    shards = []
-    for i in range(meta["n_shards"]):
-        z = np.load(os.path.join(path, f"shard{i}.npz"))
-        shards.append(
-            FMIndex(
-                config=config,
-                text_len=int(z["text_len"]),
-                n=int(z["n"]),
-                dollar_row=int(z["dollar_row"]),
-                C=z["C"],
-                search_lattice=z["search_lattice"],
-                mark_rank_ck=z["mark_rank_ck"],
-                ssa=z["ssa"],
-                text_packed=z["text_packed"],
-                kmer_d=int(z["kmer_d"]),
-                kmer_tables={
-                    int(dd): z[f"kmer_table_{int(dd)}"]
-                    for dd in z["kmer_depths"]
-                },
-                contigs=contigs,
-                shard_offset=int(z["shard_offset"]),
-                occk_lattice=z["occk_lattice"] if "occk_lattice" in z else None,
-                occk_invalid=z["occk_invalid"] if "occk_invalid" in z else None,
+    with trace.span("load_index"):
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        if meta["format_version"] != FORMAT_VERSION:
+            raise ValueError(
+                f"index format v{meta['format_version']} != engine v{FORMAT_VERSION}; rebuild"
             )
+        config = EngineConfig.from_json(meta["config"])
+        contigs = [Contig(**c) for c in meta["contigs"]]
+        m = meta["manifest"]
+        manifest = ShardManifest(
+            total_len=m["total_len"], overlap=m["overlap"], starts=m["starts"],
+            lengths=m["lengths"], contigs=contigs,
         )
-    return shards, manifest
+        shards = []
+        for i in range(meta["n_shards"]):
+            z = np.load(os.path.join(path, f"shard{i}.npz"))
+            shards.append(
+                FMIndex(
+                    config=config,
+                    text_len=int(z["text_len"]),
+                    n=int(z["n"]),
+                    dollar_row=int(z["dollar_row"]),
+                    C=z["C"],
+                    search_lattice=z["search_lattice"],
+                    mark_rank_ck=z["mark_rank_ck"],
+                    ssa=z["ssa"],
+                    text_packed=z["text_packed"],
+                    kmer_d=int(z["kmer_d"]),
+                    kmer_tables={
+                        int(dd): z[f"kmer_table_{int(dd)}"]
+                        for dd in z["kmer_depths"]
+                    },
+                    contigs=contigs,
+                    shard_offset=int(z["shard_offset"]),
+                    occk_lattice=z["occk_lattice"] if "occk_lattice" in z else None,
+                    occk_invalid=z["occk_invalid"] if "occk_invalid" in z else None,
+                )
+            )
+        return shards, manifest

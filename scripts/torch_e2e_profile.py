@@ -18,11 +18,12 @@ allocator's blocks reserved).
 On the card the launches are asynchronous: dispatch_s is the host's
 issue of each block (its packing, upload and kernel launches), and
 finish_s includes the wait for the card, the device-to-host copies and
-the host assembly. engine_device_s is Engine.stats.device_s, summed per
-block from dispatch_block's return to the end of its fetch in
-finish_block, so in this serialized loop it also holds the other
-blocks' dispatches and finishes; engine_host_s is the assembly after the
-fetch. Prints the reference's JSON line.
+the host assembly. engine_device_s is Engine.stats.device_s, the sum of
+finish_block's "wait" and "fetch" spans (the host blocked on the card,
+then copying the outputs from it); engine_host_s is Engine.stats.host_s,
+the sum of its "assemble" spans (the last heal level's columns,
+flatten_hits and truncation flags; bwtpu_torch/trace.py). Prints the
+reference's JSON line.
 
 Nothing falls back to the CPU: without a card the run fails unless
 --device cpu, which runs the kernels' plain versions.
