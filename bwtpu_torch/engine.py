@@ -61,7 +61,7 @@ from bwtpu_torch.config import EngineConfig
 from bwtpu_torch.golden import Hit
 from bwtpu_torch.index import OCCK_STEP_FROM_WIDTH, FMIndex
 from bwtpu_torch.io import Read
-from bwtpu_torch.results import FlatHits, flatten_hits
+from bwtpu_torch.results import FlatHits, flatten_hit_buffers, flatten_hits
 from bwtpu_torch.kernels import _build
 from bwtpu_torch.kernels.common import i32, popcount32
 from bwtpu_torch.kernels.compact import compact, compact_counts, scatter_back
@@ -1359,10 +1359,14 @@ class Engine:
         Span "finish", and inside it "wait" (the host blocked on the card
         until the dispatch's event; both with thread CPU time), "fetch" (the
         copies to the host), then "heal" or, at the last level, "assemble"
-        (the columns, flatten_hits and the truncation flags). Counters overflow_rows.l<level>,
+        (in "hits" mode flatten_hit_buffers: one packed int64 key a hit, built
+        from each shard's fetched buffer, deduped and report-ordered by two
+        value sorts; in the other modes their columns and flatten_hits; then
+        the truncation flags). Counters overflow_rows.l<level>,
         compact_drops.l<level> and hit_drops.l<level>: what overflowed at
-        each heal level. stats.device_s adds wait and fetch, stats.host_s
-        assemble."""
+        each heal level; assemble_keys and assemble_dupes: the hits the
+        assembly sorted and the duplicates it removed. stats.device_s adds
+        wait and fetch, stats.host_s assemble."""
         tag, block, Bp, k, outs, (seq, done), mode, level = handle
         assert tag == "block"
         mh, mc, lf, hf = self._caps(k, level)
@@ -1460,22 +1464,25 @@ class Engine:
                     "marked truncated", n_over, level, mh, mc,
                 )
             with trace.span("assemble") as asm:
-                if mode == "dense":
-                    s_idx, row_idx, p, m = dense_to_columns(*dense)
-                elif mode == "tiered":
-                    mh0 = self._caps(0, level)[0]
-                    cols = []
-                    for s, out_np in enumerate(per_shard):
-                        rows_t, p_t, m_t, _, _ = tiered_to_columns(out_np, mh0, mc, k, Bp)
-                        cols.append((np.full(len(rows_t), s, np.int64), rows_t, p_t, m_t))
-                    s_idx, row_idx, p, m = (np.concatenate(c) for c in zip(*cols))
+                if mode == "hits":  # packed keys straight from each shard's hit buffer
+                    flat = flatten_hit_buffers(
+                        block.n, block.L, Bp, Ct, k,
+                        [(cand, hm, r[0]) for (cand, hm), r in zip(hits, scal)],
+                        self._text_lens(), self._offsets())
                 else:
-                    if mode == "hits":
-                        shard_comp = [(cand, hm % 4, hm // 4, r[0])
-                                      for (cand, hm), r in zip(hits, scal)]
-                    s_idx, row_idx, p, m = compact_to_columns(shard_comp, k, Ct)
-                flat = flatten_hits(block.n, block.L, Bp, s_idx, row_idx, p, m,
-                                    self._text_lens(), self._offsets())
+                    if mode == "dense":
+                        s_idx, row_idx, p, m = dense_to_columns(*dense)
+                    elif mode == "tiered":
+                        mh0 = self._caps(0, level)[0]
+                        cols = []
+                        for s, out_np in enumerate(per_shard):
+                            rows_t, p_t, m_t, _, _ = tiered_to_columns(out_np, mh0, mc, k, Bp)
+                            cols.append((np.full(len(rows_t), s, np.int64), rows_t, p_t, m_t))
+                        s_idx, row_idx, p, m = (np.concatenate(c) for c in zip(*cols))
+                    else:
+                        s_idx, row_idx, p, m = compact_to_columns(shard_comp, k, Ct)
+                    flat = flatten_hits(block.n, block.L, Bp, s_idx, row_idx, p, m,
+                                        self._text_lens(), self._offsets())
                 if n_over:
                     # read-strand rows -> per-read flags ([0,Bp) fwd, [Bp,2Bp) rev)
                     tr = np.zeros(block.n, dtype=bool)

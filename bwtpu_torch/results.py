@@ -1,4 +1,6 @@
-# Copy of bwtpu/results.py for the port; only its imports differ (tests/test_torch_hostcopy.py).
+# Port of bwtpu/results.py: its imports differ, and flatten_hits differs in method (one packed
+# int64 key, two value sorts) while its FlatHits are held field- and dtype-equal to
+# bwtpu.results.flatten_hits by tests (test_torch_hostcopy.py, test_torch_assemble.py).
 """Vectorized hit assembly and primary-hit selection (host side).
 
 Round-2 measurement (VERDICT r2 "what's missing" #1): the per-hit Python
@@ -19,6 +21,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from bwtpu_torch import trace
 from bwtpu_torch.golden import Hit, sort_hits
 from bwtpu_torch.io import Contig
 
@@ -48,6 +51,62 @@ class Primary(NamedTuple):
     mapq: np.ndarray  # int32[n] 37 if the best-nm hit is unique else 0
 
 
+def _key_widths(n_reads: int, text_lens, offsets, max_nm: int) -> tuple[int, int]:
+    """(wg, wm): the bits of a global position and of an nm in the packed
+    key, from the genome's extent and the largest nm. The read takes the
+    bits of n_reads - 1 and the strand one; ValueError past 63 in all."""
+    ends = np.asarray(offsets, dtype=np.int64) + np.asarray(text_lens, dtype=np.int64)
+    end = int(ends.max(initial=0))
+    wr = max(n_reads - 1, 0).bit_length()
+    wg = end.bit_length()
+    wm = max(int(max_nm), 1).bit_length()
+    if wr + 1 + wg + wm > 63:
+        raise ValueError(
+            f"hit key needs {wr} + 1 + {wg} + {wm} bits (read, strand, genome position up to "
+            f"{end}, nm up to {int(max_nm)}): more than the 63 of an int64")
+    return wg, wm
+
+
+def _pack(b, sr, gpos, m, wg: int, wm: int) -> np.ndarray:
+    """int64 dedupe keys read | strand | gpos | nm (fields that fit their widths)."""
+    key = b.astype(np.int64) << (1 + wg + wm)
+    key |= sr.astype(np.int64) << (wg + wm)
+    key |= gpos << wm
+    key |= m
+    return key
+
+
+def _flat_from_keys(key: np.ndarray, n_reads: int, wg: int, wm: int) -> FlatHits:
+    """Packed dedupe keys (any order) -> deduped, report-ordered FlatHits.
+
+    One value sort groups each (read, strand, pos) with its smallest nm
+    first; the first of each run of equal key >> wm is kept. The survivors
+    are unique, so a value sort of the repacked key read | nm | strand |
+    gpos is exactly golden.sort_hits' order, with no argsort or gather.
+    Counters assemble_keys (keys sorted) and assemble_dupes (removed)."""
+    n_in = len(key)
+    key.sort()
+    if n_in > 1:
+        loc = key >> wm
+        first = np.empty(n_in, dtype=bool)
+        first[0] = True
+        np.not_equal(loc[1:], loc[:-1], out=first[1:])
+        key = key[first]
+    trace.count("assemble_keys", n_in)
+    trace.count("assemble_dupes", n_in - len(key))
+    lo = 1 + wg  # strand | gpos
+    top = key >> (lo + wm)
+    key = (top << (lo + wm)) | ((key & ((1 << wm) - 1)) << lo) | ((key >> wm) & ((1 << lo) - 1))
+    key.sort()
+    return FlatHits(
+        read_idx=(key >> (lo + wm)).astype(np.int32),
+        pos=key & ((1 << wg) - 1),
+        strand_rev=(key & (1 << wg)) != 0,
+        nm=((key >> lo) & ((1 << wm) - 1)).astype(np.int32),
+        n_reads=n_reads,
+    )
+
+
 def flatten_hits(
     n_reads: int,
     read_lens,  # int array [n_reads] or scalar (uniform length)
@@ -65,41 +124,48 @@ def flatten_hits(
     p: shard-local candidate position; m: mismatch count. Rows >= the
     live read count and out-of-bounds positions are dropped; duplicates
     on (read, pos, strand) keep the minimum nm (duplicates arise from
-    different seed slots hitting the same locus)."""
+    different seed slots hitting the same locus). Sorted as one packed
+    int64 key (_flat_from_keys); ValueError where the fields exceed 63
+    bits or an nm is negative."""
     p = np.asarray(p, dtype=np.int64)
+    row_idx, m = np.asarray(row_idx), np.asarray(m)
     b = row_idx % B
     keep = b < n_reads
-    s_idx, row_idx, p, b = s_idx[keep], row_idx[keep], p[keep], b[keep]
-    m = np.asarray(m)[keep]
-    rl = (
-        np.asarray(read_lens, dtype=np.int64)[b]
-        if np.ndim(read_lens)
-        else np.int64(read_lens)
-    )
-    tl = np.asarray(text_lens, dtype=np.int64)[s_idx]
-    keep = (p >= 0) & (p + rl <= tl)
-    s_idx, row_idx, p, m, b = s_idx[keep], row_idx[keep], p[keep], m[keep], b[keep]
-    gpos = np.asarray(offsets, dtype=np.int64)[s_idx] + p
-    sr = row_idx >= B
+    rl = np.asarray(read_lens, dtype=np.int64)
+    if rl.ndim:
+        rl = rl[np.where(keep, b, 0)] if rl.size else 0  # no read: keep is all False
+    keep &= (p >= 0) & (p + rl <= np.asarray(text_lens, dtype=np.int64)[s_idx])
+    b, sr, m = b[keep], row_idx[keep] >= B, m[keep]
+    gpos = np.asarray(offsets, dtype=np.int64)[s_idx[keep]] + p[keep]
+    if m.min(initial=0) < 0:
+        raise ValueError(f"negative nm {int(m.min())} in the hits")
+    wg, wm = _key_widths(n_reads, text_lens, offsets, m.max(initial=0))
+    return _flat_from_keys(_pack(b, sr, gpos, m, wg, wm), n_reads, wg, wm)
 
-    # dedupe (read, pos, strand) keeping min nm: group-sort with nm as
-    # the innermost key, keep each group's first element
-    order = np.lexsort((m, sr, gpos, b))
-    b, gpos, sr, m = b[order], gpos[order], sr[order], m[order]
-    first = np.ones(len(b), dtype=bool)
-    if len(b) > 1:
-        first[1:] = (b[1:] != b[:-1]) | (gpos[1:] != gpos[:-1]) | (sr[1:] != sr[:-1])
-    b, gpos, sr, m = b[first], gpos[first], sr[first], m[first]
 
-    # pinned report order (golden.sort_hits): (read, nm, strand, pos)
-    order = np.lexsort((gpos, sr, m, b))
-    return FlatHits(
-        read_idx=b[order].astype(np.int32),
-        pos=gpos[order],
-        strand_rev=sr[order],
-        nm=m[order].astype(np.int32),
-        n_reads=n_reads,
-    )
+def flatten_hit_buffers(n_reads: int, read_len: int, B: int, Ct: int, k: int,
+                        shard_hits, text_lens, offsets) -> FlatHits:
+    """Each shard's fetched hit buffer (cand, hm, count) -> FlatHits, as
+    flatten_hits would give from its columns, with no columns built.
+
+    cand: shard-local candidate position; hm = lane * 4 + nm, the lane's
+    read-strand row lane // Ct ([0, B) forward, [B, 2B) reverse); lanes
+    from count on are not hits. The same filters as flatten_hits, and nm
+    <= k; every read read_len long."""
+    wg, wm = _key_widths(n_reads, text_lens, offsets, k)
+    keys = []
+    for off, tl, (cand, hm, count) in zip(offsets, text_lens, shard_hits):
+        cand, hm = cand[:count], hm[:count]
+        nm = hm & 3
+        row = (hm >> 2) // Ct
+        sr = row >= B
+        b = row - sr * B
+        p = cand.astype(np.int64)
+        keep = (nm <= k) & (b < n_reads) & (p >= 0) & (p + read_len <= tl)
+        # packed first and cut once: a dropped lane's fields may not fit, but only its own key
+        keys.append(_pack(b, sr, p + off, nm, wg, wm)[keep])
+    key = np.concatenate(keys) if keys else np.zeros(0, np.int64)
+    return _flat_from_keys(key, n_reads, wg, wm)
 
 
 def hit_lists(flat: FlatHits) -> list[list[Hit]]:

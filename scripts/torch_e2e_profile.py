@@ -21,8 +21,8 @@ finish_s includes the wait for the card, the device-to-host copies and
 the host assembly. engine_device_s is Engine.stats.device_s, the sum of
 finish_block's "wait" and "fetch" spans (the host blocked on the card,
 then copying the outputs from it); engine_host_s is Engine.stats.host_s,
-the sum of its "assemble" spans (the last heal level's columns,
-flatten_hits and truncation flags; bwtpu_torch/trace.py). Prints the
+the sum of its "assemble" spans (the last heal level's hit assembly
+and truncation flags; bwtpu_torch/trace.py). Prints the
 reference's JSON line.
 
 Nothing falls back to the CPU: without a card the run fails unless

@@ -223,11 +223,14 @@ def test_engine_block_spans_one_pair_a_level(healing, k, monkeypatch):
 @pytest.mark.parametrize("k", [0, 2])
 def test_engine_counters_equal_the_block_outputs(healing, k, monkeypatch):
     eng, blk = healing
-    d0, h0 = eng.stats.device_s, eng.stats.host_s
+    d0, h0, hits0 = eng.stats.device_s, eng.stats.host_s, eng.stats.hits
     spans, counted, handles = _one_block(eng, blk, k, monkeypatch)
     W = pack_block(blk)[0].shape[1]
     assert counted.pop("h2d_bytes") == len(handles) * 2 * 48 * W * 4
     assert counted.pop("d2h_bytes") > 0
+    # the last level's assembly: the keys it sorted less the duplicates it removed
+    keys, dupes = counted.pop("assemble_keys"), counted.pop("assemble_dupes", 0)
+    assert keys - dupes == eng.stats.hits - hits0 > 0
     want = {}
     for h in handles:
         mode, level, outs = h[6], h[7], h[4]
